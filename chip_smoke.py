@@ -6,34 +6,45 @@ CUDA card and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit and no
-result line:
+It drives two paths of the port: device-tier NEXMark Q5 (``window_agg``)
+and LM serving (``decode_attention``).  Phases, in order; any failure ends
+the run with a non-zero exit and no result line:
 
 1. card: its name and power limit (``nvidia-smi``);
-2. build: every kernel of the path from ``src/repro_torch/kernels/csrc``
-   with ``nvcc``;
+2. build: every kernel from ``src/repro_torch/kernels/csrc`` with
+   ``nvcc``, one process per source, all started together;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
-   card, at the main path's shape and at edge shapes;
-4. main path: device-tier NEXMark Q5 through ``StreamExecutor.run_stream``
+   card, at its path's shapes and at edge shapes;
+4. Q5 path: device-tier NEXMark Q5 through ``StreamExecutor.run_stream``
    at the paper's configuration (10 s window sliding by 10 ms over 10 000
    auctions, 16 384 key buckets, 65 536 events per step), held exactly
-   against an independent numpy oracle; the kernels' launch counts are
-   zeroed just before and read just after;
-5. latency: per-step event-to-result latency, one step at a time;
+   against an independent numpy oracle;
+5. latency: Q5's per-step event-to-result latency, one step at a time;
 6. summing: Q5 summing bid prices with TF32 switched on globally, held
    against a float64 oracle (emission must stay full float32);
-7. timing: each kernel at the main path's shape beside its plain version,
-   its library yardstick and its memory bound, then a profiled stretch of
-   the main path (device time by kernel, the device's idle share) — last,
-   because the profiler slows every launch after it;
-8. the numbers line, the kernels line, the card line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+7. serve path: ``BatchedLMServer`` decoding qwen2-1.5b at full width
+   (28 layers, random weights from a seed) for 16 requests of 256 prompt
+   and 256 new tokens over 8 slots; then one full-depth step with TF32
+   switched on globally must give the same logits;
+8. card against CPU: qwen2-1.5b at full width cut to 4 layers, the same
+   weights on both, 16 teacher-forced steps, logits compared;
+9. timing: each kernel at its path's shape beside its plain version, its
+   library yardstick and its bound (``decode_attention`` also at the
+   ``decode_32k`` shape), then a profiled stretch of each path (device time
+   by kernel, the device's idle share) — last, because the profiler slows
+   every launch after it;
+10. the numbers line, the kernels line, the card line, and last the result
+    line ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX and nothing of the JAX package ``repro``.
+Before each path runs, the launch counts of its kernels are set to 0;
+they are read just after.  Imports nothing of JAX and nothing of the JAX
+package ``repro``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,15 +58,28 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attn import (  # noqa: E402
+    decode_attention, decode_attention_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
-    window_agg, window_agg_into_, window_agg_plain_into_)
+    window_agg, window_agg_flat_into_, window_agg_flat_plain_into_,
+    window_agg_plain_into_)
+from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
+from repro_torch.models import lm, transformer  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    params_from_numpy, params_to_numpy)
 from repro_torch.nexmark import NexmarkGenerator  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
 
-#: H100 SXM device memory rate (NVIDIA data sheet), bytes/s
+#: H100 SXM device memory rate and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
+KERNELS = ("window_agg", "decode_attn")
 
 # the paper's Q5 (nexmark/queries.py:187) over its §7.1 stream
 WINDOW_MS, SLIDE_MS = 10_000, 10
@@ -69,6 +93,25 @@ F32_TOL = dict(rtol=1e-6, atol=1e-5)
 MAIN_STEPS = 1500        # the last 500 windows it emits span a full 10 s
 LATENCY_STEPS = 10_000   # a p99.99 needs 10 000 samples
 SUMMING_STEPS = 300
+
+# LM serving (repro/launch/serve.py) of qwen2-1.5b at full width, float32
+ARCH = "qwen2-1.5b"
+SLOTS, N_REQUESTS, PROMPT_LEN, MAX_NEW, MAX_SEQ = 8, 16, 256, 256, 1024
+#: kernel against plain version in every type, as tests/test_kernels.py
+#: holds the Pallas kernel to its oracle in f32: the kernel sums in another
+#: order and scales q where the plain version scales the scores; both widen
+#: the same bf16 inputs to f32 and sum in f32
+ATTN_TOL = 2e-5
+#: kernel against the library yardstick, which computes in the input type
+LIB_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: card against CPU at full width: every sum (1536-wide rows, 8960-wide
+#: MLP rows, the 151 936-wide head) runs in another order on each side, and
+#: the differences grow through 4 layers
+CPU_TOL = dict(rtol=1e-3, atol=1e-3)
+CPU_LAYERS, CPU_STEPS = 4, 16
+#: the profiled serve stretch covers positions PROFILE_AT to PROFILE_AT +
+#: PROFILE_STEPS - 1 (second wave of requests, no admission in between)
+PROFILE_AT, PROFILE_STEPS = 600, 20
 
 
 def log(msg: str) -> None:
@@ -136,16 +179,29 @@ def card() -> tuple[str, str]:
     return name, smi
 
 
+def zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    window_agg.launches = 0
+    decode_attention.launches = 0
+
+
 # -- phase 2 -----------------------------------------------------------------
 def build() -> None:
-    """Build (or load, where the checkout has it already) every kernel of
-    the path; print the time and ptxas' register and spill report."""
-    for name in ("window_agg",):
+    """Build (or load, where the checkout has it already) every kernel, one
+    ``nvcc`` per source, all started together; print the times and ptxas'
+    register and spill report."""
+    def one(name):
         fresh = not _build.library_path(name).exists()
         t0 = time.perf_counter()
         _build.load(name)
-        log(f"build: {name} {'built' if fresh else 'loaded'} in "
-            f"{time.perf_counter() - t0:.2f} s")
+        return fresh, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        done = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, (fresh, dt) in done.items():
+        log(f"build: {name} {'built' if fresh else 'loaded'} in {dt:.2f} s")
         text = _build.library_path(name).with_suffix(".log").read_text()
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -153,16 +209,24 @@ def build() -> None:
 
 
 # -- phase 3 -----------------------------------------------------------------
+def accumulate_index(keys, slots, n_keys: int, ring_len: int):
+    """The flat pane index accumulate gives the kernel: int32
+    ``slot * K + key``, a negative one wrapped by ``R * K``."""
+    index = slots * n_keys + keys
+    return torch.where(index < 0, index + ring_len * n_keys, index)
+
+
 def check_window_agg(dev) -> dict:
-    """window_agg against its plain version: counts exactly, f32 sums to
-    rtol 1e-6 (atomics add in no fixed order), bf16 values to the same
-    tolerance (both sides widen the same bf16 values to f32)."""
+    """window_agg against its plain version, the op and the flat form
+    (the main path's call, at the main path's inputs): counts exactly, f32
+    sums to rtol 1e-6 (atomics add in no fixed order), bf16 values to the
+    same tolerance (both sides widen the same bf16 values to f32)."""
     rng = np.random.RandomState(0)
     R = SPEC.ring_len
     gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
     path = q5_batch(gen, 7)
     path_t = {k: torch.from_numpy(v).to(dev) for k, v in path.items()}
-    path_slots = (path_t["ts"] // SLIDE_MS) % R
+    path_slots = ((path_t["ts"] // SLIDE_MS) % R).to(torch.int32)
 
     def rand(n, k, r, dtype=torch.float32, oob=False):
         lo_k, hi_k, lo_r, hi_r = (-4, k + 9, -2, r + 3) if oob else (0, k, 0,
@@ -173,8 +237,8 @@ def check_window_agg(dev) -> dict:
                 torch.from_numpy(rng.rand(n) > 0.2), k, r)
 
     cases = {
-        "path_q5_counts": (path_t["key"], path_slots.to(torch.int32),
-                           path_t["value"], path_t["valid"], K, R),
+        "path_q5_counts": (path_t["key"], path_slots, path_t["value"],
+                           path_t["valid"], K, R),
         "path_random_f32": rand(B, K, R),
         "empty": rand(0, 100, 4),
         "ragged": rand(1025, 129, 3),
@@ -182,36 +246,103 @@ def check_window_agg(dev) -> dict:
         "bf16_values": rand(8192, 512, 16, dtype=torch.bfloat16),
     }
     max_err = 0.0
+
+    def held(name, got, want, n, launched, exact):
+        torch.cuda.synchronize()
+        if launched != (1 if n else 0):
+            raise AssertionError(f"{name}: {launched} launches")
+        if exact:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: counts differ from the plain "
+                                     f"version")
+        else:
+            torch.testing.assert_close(got, want, **F32_TOL)
+        return float((got - want).abs().max()) if got.numel() else 0.0
+
+    # the op: (K, R) sums of keys and slots
     for name, (keys, slots, vals, valid, k, r) in cases.items():
         keys, slots, vals, valid = (t.to(dev) for t in (keys, slots, vals,
                                                         valid))
         before = window_agg.launches
-        panes = window_agg_into_(torch.zeros((r, k), device=dev), keys,
-                                 slots, vals, valid)
         kr = window_agg(keys, slots, vals, valid, k, r)
-        torch.cuda.synchronize()
         launched = window_agg.launches - before
-        if launched != (2 if keys.numel() else 0):
-            raise AssertionError(f"{name}: {launched} launches")
         want = window_agg_plain_into_(torch.zeros((r, k), device=dev), keys,
                                       slots, vals, valid)
-        torch.cuda.synchronize()
-        if name == "path_q5_counts":
-            if not (torch.equal(panes, want) and torch.equal(kr.t(), want)):
-                raise AssertionError("path counts differ from plain version")
-        else:
-            torch.testing.assert_close(panes, want, **F32_TOL)
-            torch.testing.assert_close(kr.t(), want, **F32_TOL)
-        err = max(float((panes - want).abs().max()),
-                  float((kr.t() - want).abs().max()))
+        err = held(name, kr.t(), want, keys.numel(), launched,
+                   exact=name == "path_q5_counts")
         max_err = max(max_err, err)
         log(f"window_agg {name}: N={keys.numel()} K={k} R={r} "
+            f"{vals.dtype} max_abs_err={err:.3g} ok")
+
+    # the flat form as accumulate calls it: the flat index into the
+    # flattened (R, K) panes, zeroed; first at the main path's inputs
+    flat_cases = {"path_q5_flat": (path_t["key"], path_slots,
+                                   path_t["value"], path_t["valid"], K, R)}
+    for name in ("out_of_range", "bf16_values"):
+        flat_cases[f"{name}_flat"] = cases[name]
+    for name, (keys, slots, vals, valid, k, r) in flat_cases.items():
+        keys, slots, vals, valid = (t.to(dev) for t in (keys, slots, vals,
+                                                        valid))
+        index = accumulate_index(keys, slots, k, r)
+        before = window_agg.launches
+        got = window_agg_flat_into_(torch.zeros(r * k, device=dev), index,
+                                    vals, valid)
+        launched = window_agg.launches - before
+        want = window_agg_flat_plain_into_(torch.zeros(r * k, device=dev),
+                                           index, vals, valid)
+        err = held(name, got, want, keys.numel(), launched,
+                   exact=name == "path_q5_flat")
+        max_err = max(max_err, err)
+        log(f"window_agg {name}: N={keys.numel()} flat R*K={r * k} "
             f"{vals.dtype} max_abs_err={err:.3g} ok")
 
     return {"name": "window_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/window_agg.cu",
             "replaces": "src/repro/kernels/window_agg.py:54",
             "max_abs_err": max_err}
+
+
+def cache_view(rng, b, s, hk, dh, dtype, dev):
+    """k or v as the model holds it, ``(B, S, Hk, dh)``, permuted to the
+    op's ``(B, Hk, S, dh)`` view (read in place, never copied)."""
+    t = torch.from_numpy(rng.randn(b, s, hk, dh).astype(np.float32))
+    return t.to(dev, dtype).permute(0, 2, 1, 3)
+
+
+def check_decode_attention(dev) -> dict:
+    """decode_attention against its plain version at the serve shape
+    (8 slots, 12 query heads over 2 kv heads, dh 128, S = 1024) through
+    the cache's seq-major view, and at edge shapes; f32 and bf16 within
+    2e-5."""
+    rng = np.random.RandomState(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f"serve_{str(dt)[6:]}_pos{pos}", 8, 12, 2, 1024, 128, pos, dt)
+             for dt in (f32, bf16) for pos in (0, 511, 1023)]
+    cases += [("g1", 1, 16, 16, 1024, 128, 700, f32),
+              ("hk8", 1, 24, 8, 1024, 128, 1023, f32),
+              ("ragged_s", 2, 12, 2, 1000, 128, 999, f32),
+              ("pos_past_s", 2, 12, 2, 1000, 128, 1500, f32)]
+    errs = {f32: 0.0, bf16: 0.0}
+    for name, b, h, hk, s, dh, pos, dt in cases:
+        q = torch.from_numpy(rng.randn(b, h, dh).astype(np.float32)).to(
+            dev, dt)
+        k, v = (cache_view(rng, b, s, hk, dh, dt, dev) for _ in range(2))
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        if decode_attention.launches != before + 1:
+            raise AssertionError(f"{name}: the kernel did not launch once")
+        want = decode_attention_plain(q, k, v, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        err = float((got - want).abs().max())
+        errs[dt] = max(errs[dt], err)
+        log(f"decode_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"pos {pos} {dt} max_abs_err={err:.3g} ok")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+            "replaces": "src/repro/kernels/decode_attn.py:65",
+            "max_abs_err": errs[f32], "max_abs_err_bf16": errs[bf16]}
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -282,13 +413,15 @@ def main_path(dev, n_steps: int) -> dict:
     torch.cuda.synchronize()
 
     ex = StreamExecutor(cfg)
-    window_agg.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, results = ex.run_stream(feed, n_steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = window_agg.launches
+    if decode_attention.launches:
+        raise AssertionError("decode_attention launched on the Q5 path")
 
     oracle = window_oracle(hist)
     n_windows = check_against_oracle(results, oracle, n_steps, exact=True)
@@ -404,38 +537,196 @@ def summing(dev, n_steps: int) -> dict:
 
 
 # -- phase 7 -----------------------------------------------------------------
+def serve_prompts(cfg):
+    rng = np.random.RandomState(0)
+    return [(i, rng.randint(0, cfg.vocab_size, PROMPT_LEN).tolist())
+            for i in range(N_REQUESTS)]
+
+
+def serve_steps(server, pending, n: int) -> list:
+    """``n`` server steps (fewer if the work drains), admitting pending
+    requests first as serve.main does; host ms of each step, which ends in
+    the step's one host read."""
+    ms = []
+    while len(ms) < n and (pending or server.active):
+        while pending and server.submit(*pending[0], MAX_NEW):
+            pending.pop(0)
+        t0 = time.perf_counter()
+        server.step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def serve_path(dev, cfg, params):
+    """The serve main path: 16 requests of 256 prompt and 256 new tokens
+    over 8 slots, greedy decode through BatchedLMServer."""
+    prompts = serve_prompts(cfg)
+    # warm-up outside the count: cuBLAS handles, the allocator's pools
+    warm = BatchedLMServer(cfg, params, batch_slots=SLOTS, max_seq=16,
+                           device=dev)
+    serve_steps(warm, [(0, prompts[0][1][:4])], 8)
+    del warm
+    server = BatchedLMServer(cfg, params, batch_slots=SLOTS,
+                             max_seq=MAX_SEQ, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    step_ms = serve_steps(server, list(prompts), 10**6)
+    dt = time.perf_counter() - t0
+    launches, other = decode_attention.launches, window_agg.launches
+    steps = len(step_ms)
+
+    done = server.completed
+    if sorted(r["id"] for r in done) != list(range(N_REQUESTS)):
+        raise AssertionError(f"{len(done)} of {N_REQUESTS} requests done")
+    if any(len(r["out"]) != MAX_NEW for r in done):
+        raise AssertionError("a request ended with the wrong token count")
+    toks = np.array([r["out"] for r in done])
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"tokens outside [0, {cfg.vocab_size})")
+    if server.pos - 1 >= MAX_SEQ:
+        raise AssertionError(f"last pos {server.pos - 1} >= max_seq "
+                             f"{MAX_SEQ}: the cache write clamped")
+    if launches != cfg.n_layers * steps or other:
+        raise AssertionError(f"decode_attention launched {launches} times "
+                             f"in {steps} steps of {cfg.n_layers} layers "
+                             f"(window_agg {other})")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": sum(p.numel() for p in params.parameters()),
+        "slots": SLOTS, "requests": N_REQUESTS, "prompt_len": PROMPT_LEN,
+        "max_new": MAX_NEW, "max_seq": MAX_SEQ, "last_pos": server.pos - 1,
+        "steps": steps, "wall_s": dt, "steps_per_s": steps / dt,
+        "new_tokens_per_s": N_REQUESTS * MAX_NEW / dt,
+        "fed_tokens_per_s": N_REQUESTS * (PROMPT_LEN + MAX_NEW - 1) / dt,
+        "wall_ms_per_step": dt / steps * 1e3,
+        "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_p99": float(np.percentile(step_ms, 99)),
+        "host_reads_per_step": server.host_reads / steps,
+        "weight_bytes": weight_bytes,
+        "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "decode_attention_launches": launches,
+    }
+    log(f"serve path: {N_REQUESTS} requests x {MAX_NEW} tokens, all tokens "
+        f"in range, {launches} kernel launches = {cfg.n_layers} x {steps} "
+        f"steps; {json.dumps(out)}")
+    return out, server, step_ms
+
+
+def tf32_step(dev, cfg, server) -> dict:
+    """One full-depth decode step with TF32 switched on globally gives the
+    logits it gives without (decode_step pins float32 matmuls to IEEE),
+    and they are finite.  The control, the head's product outside the pin,
+    must err beyond 1e-5 under TF32, or the phase proves nothing."""
+    pos = server.pos
+
+    def step():
+        cache = [{k: t.clone() for k, t in c.items()} for c in server.cache]
+        return transformer.decode_step(cfg, server.params, cache,
+                                       server.tokens, pos, torch.float32)[0]
+
+    h = torch.from_numpy(np.random.RandomState(2).randn(
+        SLOTS, cfg.d_model).astype(np.float32)).to(dev)
+    head = server.params.embed.T
+    ieee, ctrl_ieee = step(), h @ head
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, ctrl_tf32 = step(), h @ head
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not torch.isfinite(ieee).all():
+        raise AssertionError("non-finite logits at full depth")
+    torch.testing.assert_close(tf32, ieee, rtol=1e-6, atol=1e-6)
+    ctrl = float((ctrl_tf32 - ctrl_ieee).abs().max()
+                 / ctrl_ieee.abs().max())
+    if not ctrl > 1e-5:
+        raise AssertionError(f"TF32 control within 1e-5 ({ctrl:.3g}): the "
+                             f"phase does not exercise TF32")
+    res = {"pos": pos, "bitwise_equal": bool(torch.equal(tf32, ieee)),
+           "max_abs_diff": float((tf32 - ieee).abs().max()),
+           "tf32_control_rel_err": ctrl}
+    log(f"serve step under TF32: logits finite and equal to IEEE; "
+        f"{json.dumps(res)}")
+    return res
+
+
+# -- phase 8 -----------------------------------------------------------------
+def card_vs_cpu(dev) -> dict:
+    """qwen2-1.5b at full width cut to 4 layers, the same weights on card
+    (the kernel) and CPU (plain versions), 16 teacher-forced steps of 8
+    rows: logits within CPU_TOL, greedy tokens equal wherever the CPU's
+    top-2 margin exceeds 1e-3."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CPU_LAYERS)
+    card = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                          torch.float32, device=dev)
+    cpu = params_from_numpy(cfg, params_to_numpy(cfg, card), device="cpu")
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (CPU_STEPS, SLOTS)).astype(np.int32))
+    caches = {d: lm.init_cache(cfg, SLOTS, CPU_STEPS, torch.float32,
+                               device=d) for d in (dev, "cpu")}
+    err, compared, agree = 0.0, 0, 0
+    t0 = time.perf_counter()
+    for pos in range(CPU_STEPS):
+        lc = transformer.decode_step(cfg, card, caches[dev],
+                                     tokens[pos].to(dev), pos,
+                                     torch.float32)[0].cpu()
+        lh = transformer.decode_step(cfg, cpu, caches["cpu"], tokens[pos],
+                                     pos, torch.float32)[0]
+        torch.testing.assert_close(lc, lh, **CPU_TOL)
+        err = max(err, float((lc - lh).abs().max()))
+        top2 = lh.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+        compared += int(clear.sum())
+        agree += int((lc.argmax(-1) == lh.argmax(-1))[clear].sum())
+    if agree != compared:
+        raise AssertionError(f"greedy tokens differ in {compared - agree} of "
+                             f"{compared} clear-margin rows")
+    res = {"layers": CPU_LAYERS, "steps": CPU_STEPS, "rows": SLOTS,
+           "max_abs_logit_err": err, "clear_margin_rows": compared,
+           "greedy_equal": agree, "s": time.perf_counter() - t0}
+    log(f"card against CPU: logits within rtol=atol=1e-3; "
+        f"{json.dumps(res)}")
+    return res
+
+
+# -- phase 9 -----------------------------------------------------------------
 def time_window_agg(dev) -> dict:
-    """window_agg at the main path's shape (one step's Q5 batch added into
-    the (R, K) panes, as accumulate calls it) beside its plain version, its
-    library yardstick and its memory bound.  Runs after the main path: the
-    profiler, once started, slows every later launch."""
+    """window_agg at the main path's shape, as accumulate calls it (one
+    step's Q5 batch added at the flat index into the flattened (R, K)
+    panes) beside its plain version, its library yardstick and its memory
+    bound.  Runs after the main path: the profiler, once started, slows
+    every later launch."""
     R = SPEC.ring_len
     b = q5_batch(NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS), 7)
     keys, vals, valid = (torch.from_numpy(b[k]).to(dev)
                          for k in ("key", "value", "valid"))
     slots = ((torch.from_numpy(b["ts"]).to(dev) // SLIDE_MS) % R).to(
         torch.int32)
-    panes = torch.zeros((R, K), device=dev)
+    index = accumulate_index(keys, slots, K, R)
+    flat = torch.zeros(R * K, device=dev)
     # library yardstick: one index_add_ on the flattened panes, given the
-    # flat index and masked values it needs ready-made
-    flat_idx = torch.where(valid, slots.long() * K + keys.long(), 0)
+    # int64 index and masked values it needs ready-made
+    flat_idx = torch.where(valid, index.long(), 0)
     flat_val = torch.where(valid, vals, 0.0)
-    flat = panes.view(-1)
-    fns = {"kernel": lambda: window_agg_into_(panes, keys, slots, vals,
-                                              valid),
-           "plain": lambda: window_agg_plain_into_(panes, keys, slots, vals,
-                                                   valid),
+    fns = {"kernel": lambda: window_agg_flat_into_(flat, index, vals, valid),
+           "plain": lambda: window_agg_flat_plain_into_(flat, index, vals,
+                                                        valid),
            "library": lambda: flat.index_add_(0, flat_idx, flat_val)}
     # CUDA events over 200 back-to-back calls, in turns
     times = {}
     for label in ("plain", "kernel", "library", "kernel", "plain"):
         times.setdefault(label, []).append(cuda_ms(fns[label], iters=200))
     dev_only = {label: device_ms(fn) for label, fn in fns.items()}
-    # bytes this batch needs: each input read once, and one read and one
-    # write of every (slot, key) cell the contributing rows touch
+    # bytes this batch needs: each input (index, value, valid) read once,
+    # and one read and one write of every pane cell the contributing rows
+    # touch
     cells = torch.unique(flat_idx[valid]).numel()
     n = keys.numel()
-    bytes_moved = n * (4 + 4 + vals.element_size() + 1) + 8 * cells
+    bytes_moved = n * (4 + vals.element_size() + 1) + 8 * cells
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     log(f"window_agg timing at N={n} K={K} R={R} ({int(valid.sum())} bids, "
         f"{cells} cells): events ms {json.dumps(times)}; device time alone "
@@ -471,6 +762,155 @@ def profile_main_path(dev, wall_ms_per_step: float, n_steps: int = 50):
     return res
 
 
+def attention_bound(b, h, hk, n_valid, dh, dtype):
+    """The least time for decode_attention's work: each of the n_valid
+    cached rows of k and v read once, q read and the f32 output written
+    once, against 4 * B * H * n_valid * dh operations at the type's peak."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * b * hk * n_valid * dh * isz + b * h * dh * (isz + 4)
+    ops = 4 * b * h * n_valid * dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def decode_timing_cases(dev):
+    """Per timed shape: its label, shape, iterations and the three calls
+    (kernel, plain version, library yardstick), inputs drawn on the card.
+    The serve shape (f32, pos 1023) rotates over 8 caches so that, as on
+    the path, the 134 MB read does not sit in the 50 MB L2; decode_32k is
+    bf16 at B = 128, S = 32 768 with qwen2's heads.  The yardstick is one
+    ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on head-major
+    copies, which the port never calls; None where it does not run."""
+    d32 = SHAPES["decode_32k"]
+    shapes = {"serve": (8, 12, 2, 1024, 128, torch.float32, 8, 200),
+              "decode_32k": (d32.global_batch, 12, 2, d32.seq_len, 128,
+                             torch.bfloat16, 1, 10)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for label, (b, h, hk, s, dh, dt, copies, iters) in shapes.items():
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+        pos = s - 1
+        q = draw(b, h, dh)
+        kv = [tuple(draw(b, s, hk, dh).permute(0, 2, 1, 3) for _ in "kv")
+              for _ in range(copies)]
+        heads = [(k.contiguous(), v.contiguous()) for k, v in kv]
+        turn = [0]
+
+        def rotating(fn, pairs):
+            def call():
+                k, v = pairs[turn[0] % copies]
+                turn[0] += 1
+                return fn(k, v)
+            return call
+
+        fns = {"kernel": rotating(
+                   lambda k, v: decode_attention(q, k, v, pos), kv),
+               "plain": rotating(
+                   lambda k, v: decode_attention_plain(q, k, v, pos), kv),
+               "library": rotating(
+                   lambda k, v: F.scaled_dot_product_attention(
+                       q.unsqueeze(2), k, v, enable_gqa=True), heads)}
+        try:                     # the yardstick computes the same function
+            lib_out = F.scaled_dot_product_attention(
+                q.unsqueeze(2), *heads[0], enable_gqa=True)[:, :, 0]
+            torch.testing.assert_close(lib_out.float(),
+                                       decode_attention(q, *kv[0], pos),
+                                       rtol=LIB_TOL[dt], atol=LIB_TOL[dt])
+        except RuntimeError as e:
+            log(f"decode_attention {label}: no library yardstick ({e})")
+            del fns["library"]
+        yield label, (b, h, hk, s, dh, dt, pos), iters, fns
+        del q, kv, heads, fns
+        torch.cuda.empty_cache()
+
+
+def time_decode_attention(dev) -> dict:
+    """decode_attention beside its plain version and its library yardstick
+    by CUDA events, in turns, and its bound; before any profiler runs."""
+    res = {}
+    for label, (b, h, hk, s, dh, dt, pos), iters, fns in \
+            decode_timing_cases(dev):
+        warm = 5 if iters > 20 else 2
+        times = {}
+        for which in ("plain", "kernel", "library", "kernel", "plain"):
+            if which in fns:
+                times.setdefault(which, []).append(
+                    cuda_ms(fns[which], iters=iters, warmup=warm))
+        bound_ms, bound_by, nbytes = attention_bound(b, h, hk, s, dh, dt)
+        res[label] = {
+            "shape": [b, h, hk, s, dh], "dtype": str(dt)[6:], "pos": pos,
+            "ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+            "library_ms": min(times["library"]) if "library" in times
+            else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "events_ms": times}
+        log(f"decode_attention timing {label}: {json.dumps(res[label])}")
+    serve = res["serve"]
+    return {"ms": serve["ms"], "plain_ms": serve["plain_ms"],
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+            "library_ms": serve["library_ms"],
+            "decode_32k": res["decode_32k"], "serve_shape": serve}
+
+
+def profile_decode_attention(dev, timing: dict) -> None:
+    """Device time alone (profiler) of the three calls at each timed shape,
+    added to ``timing``; after the event timings, as the profiler slows
+    every later launch."""
+    for label, _, iters, fns in decode_timing_cases(dev):
+        dev_only = {which: device_ms(fn, iters=min(iters, 20))
+                    for which, fn in fns.items()}
+        entry = timing["serve_shape" if label == "serve" else label]
+        entry.update({"device_ms": dev_only["kernel"],
+                      "plain_device_ms": dev_only["plain"],
+                      "library_device_ms": dev_only.get("library")})
+        log(f"decode_attention device time {label} (profiler) ms "
+            f"{json.dumps(dev_only)}")
+    for key in ("device_ms", "plain_device_ms", "library_device_ms"):
+        timing[key] = timing["serve_shape"][key]
+
+
+def profile_serve(dev, cfg, params, step_ms) -> dict:
+    """Where a serve step's time goes: PROFILE_STEPS steps of a fresh run
+    profiled (device time by kernel) from position PROFILE_AT, against the
+    unprofiled main run's host time at the same positions (``step_ms``;
+    the profiler slows every launch after it starts) and against the bound
+    of reading every weight and the attended KV cache once."""
+    server = BatchedLMServer(cfg, params, batch_slots=SLOTS,
+                             max_seq=MAX_SEQ, device=dev)
+    pending = serve_prompts(cfg)
+    # profiled() runs its function once before it profiles a second call
+    serve_steps(server, pending, PROFILE_AT - PROFILE_STEPS)
+    kernels = profiled(lambda: serve_steps(server, pending, PROFILE_STEPS),
+                       iters=1)
+    if server.pos != PROFILE_AT + PROFILE_STEPS:
+        raise AssertionError(f"profiled stretch ended at {server.pos}")
+    wall = float(np.mean(step_ms[PROFILE_AT:PROFILE_AT + PROFILE_STEPS]))
+    busy = sum(ms for ms, _ in kernels.values()) / PROFILE_STEPS
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    # step at position p attends p + 1 rows: the mean over the stretch
+    rows = PROFILE_AT + (PROFILE_STEPS + 1) / 2
+    kv_bytes = (2 * cfg.n_layers * SLOTS * rows * cfg.n_kv_heads
+                * cfg.head_dim_ * 4)
+    res = {"from_pos": PROFILE_AT, "steps": PROFILE_STEPS,
+           "wall_ms_per_step": wall, "device_ms_per_step": busy,
+           "device_idle_share": 1 - busy / wall,
+           "device_launches_per_step": sum(
+               c for _, c in kernels.values()) / PROFILE_STEPS,
+           "bound_ms_per_step": (weight_bytes + kv_bytes)
+           / HBM_BYTES_PER_S * 1e3}
+    log(f"serve per step: {json.dumps(res)}; top device time per step:")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (ms, launches) in top:
+        log(f"  {ms / PROFILE_STEPS:.5f} ms  x{launches / PROFILE_STEPS:.2f}"
+            f"  {name[:100]}")
+    res["top"] = [[name[:100], ms / PROFILE_STEPS, n / PROFILE_STEPS]
+                  for name, (ms, n) in top]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -479,21 +919,36 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = card()
     build()
-    kernel = check_window_agg(dev)
+    window = check_window_agg(dev)
+    attn = check_decode_attention(dev)
     path = main_path(dev, MAIN_STEPS)
-    kernel["launches"] = path["window_agg_launches"]
+    window["launches"] = path["window_agg_launches"]
     lat = latency(dev, LATENCY_STEPS)
     summ = summing(dev, SUMMING_STEPS)
-    kernel.update(time_window_agg(dev))
+    cfg = get_config(ARCH)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            torch.float32, device=dev)
+    serve, server, step_ms = serve_path(dev, cfg, params)
+    attn["launches"] = serve["decode_attention_launches"]
+    tf32 = tf32_step(dev, cfg, server)
+    del server
+    vs_cpu = card_vs_cpu(dev)
+    attn.update(time_decode_attention(dev))
+    window.update(time_window_agg(dev))
+    profile_decode_attention(dev, attn)
     prof = profile_main_path(dev, path["wall_ms_per_step"])
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    serve_prof = profile_serve(dev, cfg, params, step_ms)
+    total = time.perf_counter() - t_start
+    log(f"total {total:.1f} s")
     print(json.dumps({"main_path": path, "latency": lat, "summing": summ,
-                      "profile": prof}))
-    print(json.dumps({"kernels": [kernel]}))
+                      "profile": prof, "serve": serve, "serve_tf32": tf32,
+                      "serve_card_vs_cpu": vs_cpu,
+                      "serve_profile": serve_prof, "total_s": total}))
+    print(json.dumps({"kernels": [window, attn]}))
     print(smi)
+    # the run uses one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0
 
 

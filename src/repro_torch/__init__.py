@@ -1,14 +1,17 @@
-"""PyTorch/CUDA port of the device tier, beside the JAX package ``repro``.
+"""PyTorch/CUDA port of the JAX package ``repro``, beside it.
 
 The layout mirrors ``src/repro/`` so that each module's counterpart is
 easy to find.  The port imports ``torch`` and numpy, never ``jax`` and
 nothing of ``repro``: what it needs of a framework-free reference module
 it keeps as its own copy (``core/events.py``, ``nexmark/model.py``,
-``nexmark/generator.py``).
+``nexmark/generator.py``, ``models/config.py``, ``configs/``).
 
 Ported so far: the single-device device tier, ``streaming.StreamExecutor``
 over ``streaming.window``, whose stage-1 pane scatter is the hand-written
-Hopper kernel ``kernels.window_agg`` (CUDA C++, ``kernels/csrc``).  Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``; on CPU
+Hopper kernel ``kernels.window_agg``; and LM serving,
+``launch.serve.BatchedLMServer`` decoding dense GQA models
+(``models``, ``configs``), whose decode attention is the hand-written
+kernel ``kernels.decode_attention`` (both CUDA C++, ``kernels/csrc``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on CPU
 tensors every kernel wrapper takes its plain PyTorch version.
 """

@@ -17,19 +17,21 @@
 // which the route exchange feeds negative keys, executor.py:215-216): the
 // kernel never writes out of bounds.
 //
-// Strides let one kernel fill both layouts: the op's (K, R) output
-// (stride_slot = 1, stride_key = R), zeroed by the wrapper, and the
-// executor's (R, K) pane matrix (stride_slot = K, stride_key = 1), added in
-// place, so the main path allocates and adds no K x R delta buffer per step.
+// Strides and a null slot column let one kernel serve both callers: the
+// op's (K, R) output (stride_slot = 1, stride_key = R), zeroed by the
+// wrapper, and the executor's flat pane vector, added in place (slots null,
+// so every row is slot 0 of a single ring slot; the key is the flat index
+// slot * K + key that accumulate computes, ring_len 1, stride_key 1).  The
+// main path thus allocates no K x R delta buffer and reads no slot column.
 //
 // Values are f32, bf16 or f16, widened with the intrinsics; accumulation is
 // f32.  Counts are exact up to 2^24.  f32 sums differ from run to run in
 // the last bits: atomics complete in no fixed order.
 //
-// What bounds it: about N * 13 bytes read (key, slot, value, valid) plus
-// one 4-byte atomic read-modify-write per contributing row.  At the main
-// path's N = 65536 that is under a microsecond of memory traffic, so the
-// kernel is launch-bound.  A faster design is later work: fuse the late and
+// What bounds it: about N * 13 bytes read (key, slot, value, valid; 9 with
+// no slot column) plus one 4-byte atomic read-modify-write per contributing
+// row.  At the main path's N = 65536 that is under a microsecond of memory
+// traffic, so the kernel is launch-bound.  A faster design is later work: fuse the late and
 // conflict masks and the slot_frame scatter-max (streaming/window.py:126-148)
 // into this kernel, which removes a dozen small launches around it, or
 // privatise partial sums in shared memory where keys repeat within a block.
@@ -61,7 +63,7 @@ __global__ void window_agg_kernel(const int32_t* __restrict__ keys,
        i < n; i += step) {
     if (!valid[i]) continue;
     const int32_t k = keys[i];
-    const int32_t s = slots[i];
+    const int32_t s = slots ? slots[i] : 0;
     if (k < 0 || k >= n_keys || s < 0 || s >= ring_len) continue;
     atomicAdd(out + s * stride_slot + k * stride_key, to_f32(values[i]));
   }
@@ -86,7 +88,8 @@ cudaError_t launch(const void* keys, const void* slots, const void* values,
 
 }  // namespace
 
-// value_dtype: 0 = float32, 1 = bfloat16, 2 = float16.  device: the CUDA
+// value_dtype: 0 = float32, 1 = bfloat16, 2 = float16.  slots may be null
+// (every row in slot 0).  device: the CUDA
 // ordinal the tensors and the stream belong to; the launch makes it current
 // and restores the caller's current device after, so the thread's device is
 // the same before and after the call as PyTorch expects.  Returns the

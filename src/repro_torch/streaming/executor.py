@@ -7,7 +7,7 @@ watermark has closed (stage 2).  What the reference gets from ``jit``
 the port gets from updating state in place (see ``window.py``); hence
 ``snapshot`` and ``restore`` return clones, never the live tensors.
 
-Not ported yet (ROADMAP.md §1, queue item 2): SPMD execution over a mesh,
+Not ported yet (ROADMAP.md §1, queue item 1): SPMD execution over a mesh,
 the ``"route"`` exchange, the ring-replicated snapshot and
 ``migrate_state``.
 Asking for any of them raises; nothing quietly runs on one device instead.
@@ -22,13 +22,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..devices import resolve_device
 from .window import VectorWindowSpec, step as window_step, window_state_init
 
 ACK_INTERVAL_S = 0.1
 WINDOW_FILL_FACTOR = 3
 
 _NOT_PORTED = ("is not ported yet: the port runs the single-device executor "
-               "only (ROADMAP.md §1, queue item 2: streaming/executor.py, "
+               "only (ROADMAP.md §1, queue item 1: streaming/executor.py, "
                "multi-device half)")
 
 
@@ -70,14 +71,7 @@ class StreamExecutor:
                                       f"{_NOT_PORTED}")
         if cfg.exchange == "route":
             raise NotImplementedError(f'the "route" exchange {_NOT_PORTED}')
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: the executor runs on the "
-                                   "GPU unless it is built with device='cpu'")
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+        self.device = resolve_device(device, "the executor")
         self.cfg = cfg
         # telemetry for the adaptive receive window
         self._processed_since_ack = 0

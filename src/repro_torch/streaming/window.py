@@ -27,11 +27,11 @@ Where the port differs from the reference in mechanism (not in result):
   syncs, reported in its outputs.  The loop runs until the front passes the
   watermark or the output buffer fills, which can be up to ``EB - E + 1``
   rounds; it never predicates a fixed number of rounds.
-* Out-of-range key buckets contribute nothing (the kernel's bounds check).
-  The reference's flat scatter ``slot * K + key`` instead lands a valid row
-  with a key outside ``[0, K)`` in a neighbouring slot's pane unless the
-  flat index leaves ``[0, R*K)``; callers never feed such keys (buckets are
-  ``key % K``), and ROADMAP.md logs the difference.
+* The pane scatter keeps the reference's flat-index semantics
+  (``window.py:140-143``): an event lands at ``slot * K + key`` of the
+  flattened panes, so a key bucket outside ``[0, K)`` lands in a
+  neighbouring slot's pane, as in the reference; the ``window_agg`` op
+  itself keeps its kernel's semantics (out-of-range keys add nothing).
 
 Every state scalar stays int32, and ``//`` and ``%`` on int32 tensors
 floor as ``jnp`` does, so frame ids, slots and window ends match the
@@ -40,14 +40,14 @@ reference bit for bit.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels.window_agg import window_agg_into_
+from ..kernels.window_agg import window_agg_flat_into_
+from ..devices import ieee_fp32_matmul
 
 #: sentinel for "no frame / uninitialised emission front" (int32-safe)
 _FAR = 2**30
@@ -142,10 +142,19 @@ def accumulate(spec: VectorWindowSpec, state: Dict, ts, key_bucket, value,
     n_conflict = conflict.sum(dtype=torch.int32)
     live = live & ~conflict
 
-    # the reference's scatter-add with mode="drop" (window.py:142-143):
-    # the kernel's bounds check drops what the flat index would not hold
-    window_agg_into_(state["panes"], key_bucket.to(torch.int32), slot,
-                     value.to(torch.float32), live)
+    # the reference's flat scatter-add (window.py:140-143): the event goes
+    # to int32 index slot*K + key of the (R*K,) panes.  JAX indexing wraps
+    # an index in [-R*K, 0) by R*K first, and mode="drop" drops what is
+    # still outside [0, R*K); so a key outside [0, K) lands in a
+    # neighbouring slot (a negative one in the previous slot, or from slot
+    # 0 in slot R-1).  The kernel's flat form adds at that index into the
+    # flat view of the panes, and its bounds check drops exactly what the
+    # reference drops.
+    RK = R * K
+    combined = slot * K + key_bucket.to(torch.int32)
+    combined = torch.where(combined < 0, combined + RK, combined)
+    window_agg_flat_into_(state["panes"].view(RK), combined,
+                          value.to(torch.float32), live)
 
     # record which frame now lives in each touched slot.  The reference
     # scatter-maxes dead rows onto index R and drops them (window.py:147-148);
@@ -169,23 +178,6 @@ def accumulate(spec: VectorWindowSpec, state: Dict, ts, key_bucket, value,
     state["dropped_late"].add_(n_late)
     state["dropped_conflict"].add_(n_conflict)
     return state
-
-
-@contextlib.contextmanager
-def ieee_fp32_matmul() -> Iterator[None]:
-    """Run float32 matmuls in full IEEE float32 inside the block, whatever
-    the caller's global TF32 setting.  TF32 keeps 10 mantissa bits: a pane
-    sum above 2048 (bid prices, large counts) would come out wrong."""
-    # ``fp32_precision`` (torch >= 2.9) reads and sets the flag whichever
-    # API the caller used; the legacy ``allow_tf32`` raises after the new
-    # one was used
-    matmul = torch.backends.cuda.matmul
-    prev = matmul.fp32_precision
-    matmul.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        matmul.fp32_precision = prev
 
 
 def emit(spec: VectorWindowSpec, state: Dict

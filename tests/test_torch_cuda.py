@@ -1,4 +1,4 @@
-"""The Hopper ``window_agg`` kernel against its plain version, on the card.
+"""The Hopper kernels against their plain versions, on the card.
 
 Needs a CUDA card and ``nvcc``; every test carries the ``cuda`` marker and
 skips without a card.  This file imports no JAX, so it also runs where only
@@ -6,10 +6,15 @@ PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: counts exactly (integer sums below 2^24 are exact in f32 in
-any order); f32 sums ``rtol=1e-6, atol=1e-5`` (atomics add in no fixed
-order); bf16 values likewise, since kernel and plain version both widen the
-same bf16 values to f32 before adding.
+Tolerances, ``window_agg``: counts exactly (integer sums below 2^24 are
+exact in f32 in any order); f32 sums ``rtol=1e-6, atol=1e-5`` (atomics add
+in no fixed order); bf16 values likewise, since kernel and plain version
+both widen the same bf16 values to f32 before adding.  ``decode_attention``:
+``2e-5`` in every type, as ``tests/test_kernels.py`` holds the Pallas
+kernel to its oracle in f32 (the kernel sums in another order and scales q
+where the plain version scales the scores); both sides widen the same
+bf16 or f16 inputs to f32 and sum in f32, so a half type earns no wider
+tolerance.
 """
 
 import numpy as np
@@ -17,8 +22,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.decode_attn import (  # noqa: E402
+    decode_attention, decode_attention_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
-    window_agg, window_agg_into_, window_agg_plain_into_)
+    window_agg, window_agg_flat_into_, window_agg_flat_plain_into_,
+    window_agg_plain_into_)
+from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    params_from_numpy, params_to_numpy)
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
 
@@ -50,19 +63,25 @@ def _inputs(n, k, r, seed, device, counts=False, oob=False):
     (5000, 100, 6, False, True),           # keys/slots out of range
 ])
 def test_kernel_matches_plain(cuda, n, k, r, counts, oob):
+    """The op, and the flat form at accumulate's index (slot * K + key,
+    a negative one wrapped by R * K) into the flattened panes."""
     keys, slots, vals, valid = _inputs(n, k, r, n + k, cuda, counts, oob)
+    index = slots * k + keys
+    index = torch.where(index < 0, index + r * k, index)
     before = window_agg.launches
-    panes = torch.zeros((r, k), device=cuda)
-    window_agg_into_(panes, keys, slots, vals, valid)
+    flat = window_agg_flat_into_(torch.zeros(r * k, device=cuda), index,
+                                 vals, valid)
     kr = window_agg(keys, slots, vals, valid, k, r)
     torch.cuda.synchronize()
     assert window_agg.launches == before + 2
     want = window_agg_plain_into_(torch.zeros((r, k), device=cuda), keys,
                                   slots, vals, valid)
+    want_flat = window_agg_flat_plain_into_(torch.zeros(r * k, device=cuda),
+                                            index, vals, valid)
     if counts:
-        assert torch.equal(panes, want) and torch.equal(kr.t(), want)
+        assert torch.equal(flat, want_flat) and torch.equal(kr.t(), want)
     else:
-        torch.testing.assert_close(panes, want, **F32_TOL)
+        torch.testing.assert_close(flat, want_flat, **F32_TOL)
         torch.testing.assert_close(kr.t(), want, **F32_TOL)
 
 
@@ -88,8 +107,8 @@ def test_kernel_empty_batch_launches_nothing(cuda):
 def test_kernel_rejects_non_contiguous(cuda):
     keys, slots, vals, valid = _inputs(64, 16, 4, 0, cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        window_agg_into_(torch.zeros((16, 4), device=cuda).t(), keys, slots,
-                         vals, valid)
+        window_agg_flat_into_(torch.zeros(128, device=cuda)[::2], keys, vals,
+                              valid)
 
 
 def test_executor_on_cuda_matches_cpu(cuda):
@@ -121,3 +140,67 @@ def test_executor_on_cuda_matches_cpu(cuda):
     for (ge, gr), (ce, cr) in zip(g_res, c_res):
         np.testing.assert_array_equal(ge, ce)
         np.testing.assert_array_equal(gr, cr)
+
+
+# -- decode_attention ---------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,hk,s,dh,pos,dtype", [
+    (8, 12, 2, 1024, 128, 1023, "float32"),    # the serve shape, full
+    (8, 12, 2, 1024, 128, 0, "float32"),
+    (8, 12, 2, 1024, 128, 511, "bfloat16"),
+    (1, 16, 16, 512, 128, 300, "float32"),     # G = 1
+    (1, 24, 8, 640, 128, 639, "float16"),      # Hk = 8
+    (2, 16, 1, 1000, 64, 2000, "float32"),     # ragged S, pos >= S, G = 16
+    (3, 4, 2, 77, 16, 40, "float32"),          # a reduced model's heads
+])
+def test_decode_kernel_matches_plain(cuda, b, h, hk, s, dh, pos, dtype):
+    """Through the model's seq-major cache view, read in place."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(b * h + s + pos)
+    q = torch.from_numpy(rng.randn(b, h, dh).astype(np.float32)).to(cuda, dt)
+    k, v = (torch.from_numpy(rng.randn(b, s, hk, dh).astype(np.float32))
+            .to(cuda, dt).permute(0, 2, 1, 3) for _ in range(2))
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert got.shape == (b, h, dh) and got.dtype == torch.float32
+    torch.testing.assert_close(got, decode_attention_plain(q, k, v, pos),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_decode_kernel_rejects_strided_head_dim(cuda):
+    q = torch.zeros(1, 4, 32, device=cuda)
+    k = torch.zeros(1, 2, 64, 64, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k, k, 3)
+    k18 = torch.zeros(1, 2, 8, 18, device=cuda)       # dh not a multiple of 4
+    with pytest.raises(ValueError, match="multiple of 4"):
+        decode_attention(torch.zeros(1, 4, 18, device=cuda), k18, k18, 3)
+
+
+def test_server_on_cuda_matches_cpu(cuda):
+    """A reduced qwen2 served on both devices from the same weights gives
+    the same completions; every layer launches the kernel every step."""
+    cfg = get_config("qwen2-1.5b").reduced()
+    tree = params_to_numpy(cfg, lm.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.RandomState(0)
+    prompts = [(i, rng.randint(0, cfg.vocab_size, 8).tolist())
+               for i in range(12)]
+
+    def drain(device):
+        srv = BatchedLMServer(cfg, params_from_numpy(cfg, tree, device),
+                              batch_slots=4, max_seq=96, device=device)
+        pending, steps = list(prompts), 0
+        while pending or srv.active:
+            while pending and srv.submit(*pending[0], 12):
+                pending.pop(0)
+            srv.step()
+            steps += 1
+        return [(r["id"], r["out"]) for r in srv.completed], steps
+
+    before = decode_attention.launches
+    on_card, steps = drain(cuda)
+    assert decode_attention.launches - before == cfg.n_layers * steps
+    assert on_card == drain("cpu")[0]

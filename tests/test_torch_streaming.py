@@ -29,6 +29,7 @@ from repro_torch.nexmark import (  # noqa: E402
 from repro_torch.streaming.state import (  # noqa: E402
     state_from_numpy, state_to_numpy)
 from repro.streaming.window import accumulate as jax_accumulate  # noqa: E402
+from repro_torch.kernels.window_agg import window_agg  # noqa: E402
 from repro_torch.streaming.window import (  # noqa: E402
     accumulate, ieee_fp32_matmul)
 
@@ -441,20 +442,41 @@ def test_ieee_fp32_matmul_pins_and_restores():
         matmul.fp32_precision = prev
 
 
-def test_out_of_range_key_bucket_contributes_nothing():
-    """A valid event with a key outside [0, K) adds nothing in the port, as
-    in the reference's kernel; the reference's accumulate instead lands it
-    in a neighbouring slot's pane (ROADMAP.md §3 logs the difference)."""
-    kw = dict(size_ms=40, slide_ms=10, n_key_buckets=16)
-    arrays = (np.array([25, 25], np.int32), np.array([17, 3], np.int32),
-              np.ones(2, np.float32), np.ones(2, bool))
+@pytest.mark.parametrize("ts,keys,cells", [
+    # frame 2 (slot 2): key 17 lands at flat 2*16+17 = slot 3, key 1
+    ([25, 25], [17, 3], {(3, 1): 1, (2, 3): 1}),
+    # a negative key lands in the previous slot: 2*16-1 = slot 1, key 15
+    ([25], [-1], {(1, 15): 1}),
+    # from slot 0, JAX wraps the negative flat index -3 by R*K = 128
+    ([5], [-3], {(7, 13): 1}),
+    # flat indices outside [-R*K, R*K) are dropped: 7*16+40, 0*16-200
+    ([75, 5], [40, -200], {}),
+])
+def test_out_of_range_key_bucket_lands_as_in_jax(ts, keys, cells):
+    """A valid event whose key bucket lies outside [0, K) goes where the
+    reference's flat scatter puts it (index slot*K + key, mode="drop"):
+    the port's panes equal the JAX package's."""
+    kw = dict(size_ms=40, slide_ms=10, n_key_buckets=16)    # R = 8, K = 16
+    n = len(ts)
+    arrays = (np.array(ts, np.int32), np.array(keys, np.int32),
+              np.ones(n, np.float32), np.ones(n, bool))
     jstate = jst.window_state_init(jst.VectorWindowSpec(**kw))
     jpanes = np.asarray(jax_accumulate(jst.VectorWindowSpec(**kw), jstate, *(
         jnp.asarray(a) for a in arrays))["panes"])
     spec = tst.VectorWindowSpec(**kw)
     panes = accumulate(spec, tst.window_state_init(spec, device="cpu"), *(
         torch.from_numpy(a) for a in arrays))["panes"].numpy()
-    # frame 2 lives in slot 2; key 3 is counted by both packages
-    assert panes[2, 3] == jpanes[2, 3] == 1
-    assert panes.sum() == 1                      # key 17 dropped
-    assert jpanes[3, 1] == 1                     # 2 * 16 + 17 = slot 3, key 1
+    np.testing.assert_array_equal(panes, jpanes)
+    want = np.zeros_like(jpanes)
+    for (r, k), c in cells.items():
+        want[r, k] = c
+    np.testing.assert_array_equal(jpanes, want)
+
+
+def test_window_agg_op_keeps_drop_semantics():
+    """The op itself (not accumulate) keeps its kernel's semantics: keys and
+    slots outside range add nothing, as in ``ref.window_agg_ref``."""
+    out = window_agg(torch.tensor([17, 3, -1], dtype=torch.int32),
+                     torch.tensor([2, 2, 2], dtype=torch.int32),
+                     torch.ones(3), torch.ones(3, dtype=torch.bool), 16, 8)
+    assert out.sum() == 1 and out[3, 2] == 1
