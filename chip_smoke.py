@@ -6,9 +6,14 @@ CUDA card and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It drives two paths of the port: device-tier NEXMark Q5 (``window_agg``)
-and LM serving (``decode_attention``).  Phases, in order; any failure ends
-the run with a non-zero exit and no result line:
+``python3 chip_smoke.py --ranks`` runs phases 1, 2 and 9 alone (on a
+host with 4 cards: the ranks over NCCL, a card each).
+
+It drives three paths of the port: device-tier NEXMark Q5 on one card
+(``window_agg``), LM serving (``decode_attention``) and Q5 across 4 ranks
+under the route exchange (``route_counts``, ``route_offsets``,
+``route_pack``, and ``window_agg`` on every rank).  Phases, in order; any
+failure ends the run with a non-zero exit and no result line:
 
 1. card: its name and power limit (``nvidia-smi``);
 2. build: every kernel from ``src/repro_torch/kernels/csrc`` with
@@ -28,16 +33,24 @@ the run with a non-zero exit and no result line:
    switched on globally must give the same logits;
 8. card against CPU: qwen2-1.5b at full width cut to 4 layers, the same
    weights on both, 16 teacher-forced steps, logits compared;
-9. timing: each kernel at its path's shape beside its plain version, its
-   library yardstick and its bound (``decode_attention`` also at the
-   ``decode_32k`` shape), then a profiled stretch of each path (device time
-   by kernel, the device's idle share) — last, because the profiler slows
-   every launch after it;
-10. the numbers line, the kernels line, the card line, and last the result
+9. Q5 across 4 ranks at the paper's configuration, one process a rank
+   (spawned): NCCL with a card a rank where the host has 4 cards, else the
+   4 ranks share this card over gloo.  The route plan runs 1 500 steps,
+   each rank generating only its own slice of every batch, and every
+   rank's result columns must equal the numpy oracle's exactly with zero
+   drops; then the reduce plan, 200 steps (its ``psum_scatter`` moves the
+   66 MB of full-width panes a rank a step, through the host on gloo);
+   then a profiled stretch of the route plan on rank 0;
+10. timing: each kernel at its path's shape beside its plain version, its
+    library yardstick and its bound (``decode_attention`` also at the
+    ``decode_32k`` shape), then a profiled stretch of each path (device
+    time by kernel, the device's idle share) — last, because the profiler
+    slows every launch after it;
+11. the numbers line, the kernels line, the card line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
-Before each path runs, the launch counts of its kernels are set to 0;
-they are read just after.  Imports nothing of JAX and nothing of the JAX
+Before each path runs, the launch counts of its kernels are set to 0 (in
+each rank's process for the 4-rank path); they are read just after.  Imports nothing of JAX and nothing of the JAX
 package ``repro``.
 """
 
@@ -61,12 +74,19 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, decode_attention_plain)
+from repro_torch.kernels.route import (  # noqa: E402
+    route_counts, route_counts_plain, route_offsets, route_offsets_plain,
+    route_pack, route_pack_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
     window_agg, window_agg_flat_into_, window_agg_flat_plain_into_,
     window_agg_plain_into_)
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_data_mesh, spawn_ranks)
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
 from repro_torch.models import lm, transformer  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
@@ -74,12 +94,13 @@ from repro_torch.models.convert import (  # noqa: E402
 from repro_torch.nexmark import NexmarkGenerator  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
+from repro_torch.streaming.collectives import psum_scatter  # noqa: E402
 
 #: H100 SXM device memory rate and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.float16: 989e12}
-KERNELS = ("window_agg", "decode_attn")
+KERNELS = ("window_agg", "decode_attn", "route")
 
 # the paper's Q5 (nexmark/queries.py:187) over its §7.1 stream
 WINDOW_MS, SLIDE_MS = 10_000, 10
@@ -93,6 +114,16 @@ F32_TOL = dict(rtol=1e-6, atol=1e-5)
 MAIN_STEPS = 1500        # the last 500 windows it emits span a full 10 s
 LATENCY_STEPS = 10_000   # a p99.99 needs 10 000 samples
 SUMMING_STEPS = 300
+# Q5 across 4 ranks (phase 9): each owns K / 4 = 4 096 key buckets, so
+# ranks 0 and 1 each own 41 % of the 10 000 auctions and rank 3 none (the
+# paper's layout); the route plan's C = 8 192 cells a destination hold a
+# source's share of about 6 200 bids
+RANKS = 4
+ROUTE_STEPS = 1500
+#: the reduce plan moves 66 MB of panes a rank a step (through the host on
+#: gloo, about 170 ms a step on one shared card): 200 steps check it
+REDUCE_STEPS = 200
+RANK_PROFILE_STEPS = 30
 
 # LM serving (repro/launch/serve.py) of qwen2-1.5b at full width, float32
 ARCH = "qwen2-1.5b"
@@ -118,15 +149,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def q5_batch(gen: NexmarkGenerator, step: int, price: bool = False):
-    """Step ``step``'s events as numpy columns: bids are valid, the auction
-    id is the key bucket (16 384 buckets hold 10 000 auctions one each)."""
-    blk = gen.gen_block(np.arange(step * B, (step + 1) * B))
+def q5_events(gen: NexmarkGenerator, seqs: np.ndarray, price: bool = False):
+    """The events of sequence numbers ``seqs`` as numpy columns: bids are
+    valid, the auction id is the key bucket (16 384 buckets hold 10 000
+    auctions one each)."""
+    blk = gen.gen_block(seqs)
     bid = blk.cols["kind"] == 2
-    value = blk.value if price else np.ones(B)
+    value = blk.value if price else np.ones(len(seqs))
     return {"ts": blk.ts.astype(np.int32),
             "key": (blk.key % K).astype(np.int32),
             "value": value.astype(np.float32), "valid": bid}
+
+
+def q5_batch(gen: NexmarkGenerator, step: int, price: bool = False):
+    """Step ``step``'s events (one 10 ms frame of the stream)."""
+    return q5_events(gen, np.arange(step * B, (step + 1) * B), price)
+
+
+def rank_seqs(step: int, rank: int, ranks: int = RANKS) -> np.ndarray:
+    """Rank ``rank``'s contiguous slice of step ``step``'s sequence numbers
+    (the executor's ``P("data")`` slice)."""
+    b_loc = B // ranks
+    start = step * B + rank * b_loc
+    return np.arange(start, start + b_loc)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -183,6 +228,17 @@ def zero_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     window_agg.launches = 0
     decode_attention.launches = 0
+    route_counts.launches = 0
+    route_offsets.launches = 0
+    route_pack.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"window_agg": window_agg.launches,
+            "decode_attention": decode_attention.launches,
+            "route_counts": route_counts.launches,
+            "route_offsets": route_offsets.launches,
+            "route_pack": route_pack.launches}
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -345,6 +401,106 @@ def check_decode_attention(dev) -> dict:
             "max_abs_err": errs[f32], "max_abs_err_bf16": errs[bf16]}
 
 
+def check_route(dev) -> list:
+    """route_counts and route_offsets against their plain versions at the
+    route plan's shape (a rank's 16 384 events over 4 destinations), the
+    reference test shapes, a key-bucket histogram (a whole Q5 batch over
+    16 384 buckets) and edges; route_pack at the path's inputs, under a
+    skew that overflows C, with keys outside [0, K), ragged and empty.
+    All integers: held exactly."""
+    rng = np.random.RandomState(4)
+    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
+    k_loc, cap = K // RANKS, max(8, int(B // RANKS / RANKS * 2.0))
+    path = {k: torch.from_numpy(v).to(dev)
+            for k, v in q5_events(gen, rank_seqs(7, 0)).items()}
+    whole = {k: torch.from_numpy(v).to(dev)
+             for k, v in q5_batch(gen, 7).items()}
+
+    def pids(n, p, lo=0, hi=None):
+        return (torch.from_numpy(rng.randint(lo, p if hi is None else hi, n)
+                                 .astype(np.int32)).to(dev),
+                torch.from_numpy(rng.rand(n) < 0.7).to(dev), p)
+
+    def events(n, n_dest, k, c, oob=False, skew=None):
+        span = (-k * (n_dest + 2), k * (n_dest + 2)) if oob else (
+            0, n_dest * k)
+        key = rng.randint(*span, n)
+        if skew is not None:
+            hot = rng.randint(skew * k, (skew + 1) * k, n)
+            key = np.where(rng.rand(n) < 0.6, hot, key)
+        arrays = (rng.randint(0, 10_000, n).astype(np.int32),
+                  key.astype(np.int32), rng.randn(n).astype(np.float32),
+                  rng.rand(n) < 0.9)
+        return [torch.from_numpy(a).to(dev) for a in arrays] + [n_dest, k, c]
+
+    counts_cases = {
+        "path_q5_dest": (torch.div(path["key"], k_loc, rounding_mode="floor"),
+                         path["valid"], RANKS),
+        "ref_512x128": pids(512, 128), "ref_2048x256": pids(2048, 256),
+        "ref_4096x512": pids(4096, 512),
+        "key_buckets_q5": (whole["key"], whole["valid"], K),
+        "empty": pids(0, 5), "ragged": pids(1000, 7),
+        "out_of_range": pids(5000, 33, -4, 40),
+    }
+    for name, (p_ids, valid, n_parts) in counts_cases.items():
+        before = (route_counts.launches, route_offsets.launches)
+        counts = route_counts(p_ids, valid, n_parts)
+        c2, offsets = route_offsets(p_ids, valid, n_parts)
+        torch.cuda.synchronize()
+        n = p_ids.numel()
+        if (route_counts.launches - before[0],
+                route_offsets.launches - before[1]) != ((2, 1) if n
+                                                        else (0, 0)):
+            raise AssertionError(f"route {name}: launches off")
+        want_c, want_o = route_offsets_plain(p_ids, valid, n_parts)
+        if not (torch.equal(counts, route_counts_plain(p_ids, valid,
+                                                       n_parts))
+                and torch.equal(counts, want_c) and torch.equal(c2, want_c)
+                and torch.equal(offsets, want_o)):
+            raise AssertionError(f"route {name}: counts or offsets differ "
+                                 f"from the plain version")
+        log(f"route_counts/route_offsets {name}: N={n} P={n_parts} "
+            f"max_abs_err=0 ok")
+
+    pack_cases = {
+        "path_q5": [path["ts"], path["key"], path["value"], path["valid"],
+                    RANKS, k_loc, cap],
+        "skew_overflow": events(B // RANKS, RANKS, k_loc, 2048, skew=3),
+        "out_of_range": events(5000, 8, 8, 250, oob=True),
+        "ragged": events(1025, 3, 5, 300),
+        "most_destinations": events(5000, 32, 3, 20, oob=True),
+        "empty": events(0, 4, 8, 8),
+    }
+    for name, args in pack_cases.items():
+        before = route_pack.launches
+        got = route_pack(*args)
+        torch.cuda.synchronize()
+        n = args[0].numel()
+        if route_pack.launches - before != (1 if n else 0):
+            raise AssertionError(f"route_pack {name}: launches off")
+        want = route_pack_plain(*args)
+        if not (torch.equal(got.send, want.send)
+                and torch.equal(got.pos, want.pos)
+                and int(got.n_overflow) == int(want.n_overflow)):
+            raise AssertionError(f"route_pack {name}: differs from the "
+                                 f"plain version")
+        overflow = int(got.n_overflow)
+        if name == "skew_overflow" and overflow == 0:
+            raise AssertionError("skew_overflow: no event overflowed C")
+        log(f"route_pack {name}: N={n} n_dest={args[4]} k_loc={args[5]} "
+            f"C={args[6]} overflow={overflow} max_abs_err=0 ok")
+    src = "src/repro_torch/kernels/csrc/route.cu"
+    return [{"name": "route_counts", "route": "cuda", "source": src,
+             "replaces": "src/repro/kernels/route.py:42",
+             "max_abs_err": 0.0},
+            {"name": "route_offsets", "route": "cuda", "source": src,
+             "replaces": "src/repro/kernels/route.py:62",
+             "max_abs_err": 0.0},
+            {"name": "route_pack", "route": "cuda", "source": src,
+             "replaces": "src/repro/streaming/executor.py:189",
+             "max_abs_err": 0.0}]
+
+
 # -- phase 4 -----------------------------------------------------------------
 def pinned_batches(gen, n_steps: int):
     """``n_steps`` Q5 batches generated ahead into pinned host memory, and
@@ -420,8 +576,10 @@ def main_path(dev, n_steps: int) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = window_agg.launches
-    if decode_attention.launches:
-        raise AssertionError("decode_attention launched on the Q5 path")
+    others = {k: v for k, v in launch_counts().items() if k != "window_agg"}
+    if any(others.values()):
+        raise AssertionError(f"other kernels launched on the Q5 path: "
+                             f"{others}")
 
     oracle = window_oracle(hist)
     n_windows = check_against_oracle(results, oracle, n_steps, exact=True)
@@ -574,7 +732,9 @@ def serve_path(dev, cfg, params):
     t0 = time.perf_counter()
     step_ms = serve_steps(server, list(prompts), 10**6)
     dt = time.perf_counter() - t0
-    launches, other = decode_attention.launches, window_agg.launches
+    launches = decode_attention.launches
+    other = {k: v for k, v in launch_counts().items()
+             if k != "decode_attention" and v}
     steps = len(step_ms)
 
     done = server.completed
@@ -591,7 +751,7 @@ def serve_path(dev, cfg, params):
     if launches != cfg.n_layers * steps or other:
         raise AssertionError(f"decode_attention launched {launches} times "
                              f"in {steps} steps of {cfg.n_layers} layers "
-                             f"(window_agg {other})")
+                             f"(others {other})")
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
     out = {
@@ -694,6 +854,272 @@ def card_vs_cpu(dev) -> dict:
 
 
 # -- phase 9 -----------------------------------------------------------------
+def rank_batches(rank: int, ranks: int, n_steps: int):
+    """Rank ``rank``'s slice of every step's Q5 batch, generated ahead into
+    pinned host memory (no rank makes another's events), and the per-frame
+    bid histogram of the slice over all K buckets (the oracle's input)."""
+    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
+    b_loc = B // ranks
+    cols = {"ts": torch.int32, "key": torch.int32, "value": torch.float32,
+            "valid": torch.bool}
+    bufs = {k: torch.empty((n_steps, b_loc), dtype=d, pin_memory=True)
+            for k, d in cols.items()}
+    hist = np.zeros((n_steps, K), np.int32)
+    for i in range(n_steps):
+        b = q5_events(gen, rank_seqs(i, rank, ranks))
+        if not (b["ts"] // SLIDE_MS == i).all():
+            raise AssertionError(f"step {i} spans more than frame {i}")
+        for k in cols:
+            bufs[k][i].numpy()[:] = b[k]
+        hist[i] = np.bincount(b["key"][b["valid"]], minlength=K)
+    return [{k: bufs[k][i] for k in cols} for i in range(n_steps)], hist
+
+
+def rank_plan(ex, mesh, dev, feed, hist, n_steps: int) -> dict:
+    """One plan's measured run on this rank, held against the oracle: this
+    rank's columns of the global per-frame histograms (``psum_scatter`` of
+    every rank's slice histograms, after the run)."""
+    cfg = ex.cfg
+    StreamExecutor(cfg, mesh=mesh, device=dev).run_stream(feed, 16)  # warm
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, results = ex.run_stream(feed, n_steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    staged = ex.transport.host_staged_bytes
+    moved = ex.transport.collective_bytes
+    mine = psum_scatter(ex.transport, torch.from_numpy(
+        hist[:n_steps]).to(dev), dim=1).cpu().numpy()
+    n_windows = check_against_oracle(results, window_oracle(mine), n_steps,
+                                     exact=True)
+    drops = (int(state["dropped_late"]), int(state["dropped_conflict"]))
+    if drops != (0, 0):
+        raise AssertionError(f"{cfg.exchange}: dropped (late, conflict) = "
+                             f"{drops}")
+    routed = ("route_counts", "route_offsets", "route_pack")
+    want = {"window_agg": n_steps, "decode_attention": 0}
+    want.update({k: n_steps if cfg.exchange == "route" else 0
+                 for k in routed})
+    for k, n in want.items():
+        if (launches[k] < n) if n else launches[k]:
+            raise AssertionError(f"{cfg.exchange}: {k} launched "
+                                 f"{launches[k]} times in {n_steps} steps")
+    return {"steps": n_steps, "windows_checked": n_windows,
+            "owned_bids": int(mine.sum()),
+            "steps_per_s": n_steps / dt, "wall_ms_per_step": dt / n_steps * 1e3,
+            "host_staged_bytes": staged,
+            "host_staged_mb_per_step": staged / n_steps / 1e6,
+            "collective_mb_per_step": moved / n_steps / 1e6,
+            "emit_rounds_per_step": ex.emit_rounds / n_steps,
+            "host_syncs_per_step": ex.host_syncs / n_steps,
+            "capacity": ex.capacity, "launches": launches}
+
+
+def rank_profile(rank, mesh, dev, feed, n_steps: int, wall_ms: float):
+    """Where a route step's time goes: rank 0 profiles a stretch (host ops
+    and device kernels) while the other ranks run it alongside; against
+    the measured run's wall time per step."""
+    cfg = StreamJobConfig(window=SPEC, batch_size=B, exchange="route")
+
+    def stretch():
+        StreamExecutor(cfg, mesh=mesh, device=dev).run_stream(feed, n_steps)
+        torch.cuda.synchronize()
+
+    stretch()
+    dist.barrier()
+    if rank:
+        stretch()
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        stretch()
+        profiled_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    # device records (kernels, copies) alone: host ops carry their
+    # kernels' device time too, and so do the collectives' "nccl:" and
+    # "gloo:" annotations on the device's timeline; either would count it
+    # twice
+    events = prof.key_averages()
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("nccl:", "gloo:"))]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3 / n_steps
+    kernels = sorted(((e.self_device_time_total / 1e3 / n_steps,
+                       e.count / n_steps, e.key) for e in on_card
+                      if e.self_device_time_total > 0), reverse=True)
+    host = sorted(((e.self_cpu_time_total / 1e3 / n_steps, e.count / n_steps,
+                    e.key) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.self_cpu_time_total > 0), reverse=True)
+    return {"steps": n_steps, "wall_ms_per_step": wall_ms,
+            "profiled_wall_ms_per_step": profiled_ms,
+            "device_ms_per_step": busy,
+            "device_idle_share": 1 - busy / wall_ms,
+            "device_launches_per_step": sum(c for _, c, k in kernels),
+            "top_device": [[k[:90], ms, c] for ms, c, k in kernels[:10]],
+            "top_host_self": [[k[:90], ms, c] for ms, c, k in host[:12]]}
+
+
+def q5_rank(rank: int, world: int, dev, route_steps: int, reduce_steps: int,
+            profile_steps: int) -> dict:
+    """One rank of phase 9 (run in its own process): the route plan, then
+    the reduce plan, then the profiled route stretch."""
+    mesh = make_data_mesh("cuda")
+    t0 = time.perf_counter()
+    batches, hist = rank_batches(rank, world, max(route_steps, reduce_steps))
+    gen_s = time.perf_counter() - t0
+
+    def feed(start, size):
+        i = start // B
+        if start != i * B + rank * (B // world) or size != B // world:
+            raise AssertionError(f"rank {rank} asked for ({start}, {size})")
+        return batches[i]
+
+    out = {"rank": rank, "device": str(dev), "generate_s": gen_s}
+    for exchange, n_steps in (("route", route_steps),
+                              ("reduce", reduce_steps)):
+        cfg = StreamJobConfig(window=SPEC, batch_size=B, exchange=exchange)
+        ex = StreamExecutor(cfg, mesh=mesh, device=dev)
+        out[exchange] = rank_plan(ex, mesh, dev, feed, hist, n_steps)
+    out["profile"] = rank_profile(rank, mesh, dev, feed, profile_steps,
+                                  out["route"]["wall_ms_per_step"])
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def q5_ranks() -> dict:
+    """Phase 9: Q5 across RANKS ranks, one spawned process a rank (this
+    process already holds the card)."""
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= RANKS else "gloo"
+    transport = (f"nccl, one card a rank" if backend == "nccl" else
+                 f"gloo, {RANKS} ranks sharing {cards} card(s); "
+                 f"all_to_all, all_reduce and reduce_scatter on CUDA "
+                 f"tensors, ring moves staged through pinned host memory")
+    log(f"Q5 across {RANKS} ranks: transport {transport}")
+    t0 = time.perf_counter()
+    per_rank = spawn_ranks(q5_rank, RANKS, backend=backend, device="cuda",
+                           args=(ROUTE_STEPS, REDUCE_STEPS,
+                                 RANK_PROFILE_STEPS), timeout_s=700)
+    res = {"ranks": RANKS, "backend": backend, "transport": transport,
+           "phase_s": time.perf_counter() - t0,
+           "generate_s": [r["generate_s"] for r in per_rank],
+           "peak_mem_gb": [r["peak_mem_gb"] for r in per_rank]}
+    for plan in ("route", "reduce"):
+        runs = [r[plan] for r in per_rank]
+        launches = {k: sum(r["launches"][k] for r in runs)
+                    for k in runs[0]["launches"]}
+        slowest = max(runs, key=lambda r: r["wall_ms_per_step"])
+        res[plan] = {
+            "steps": runs[0]["steps"],
+            "windows_checked_per_rank": runs[0]["windows_checked"],
+            "owned_bids": [r["owned_bids"] for r in runs],
+            "steps_per_s": [r["steps_per_s"] for r in runs],
+            "wall_ms_per_step": [r["wall_ms_per_step"] for r in runs],
+            "slowest_rank": runs.index(slowest),
+            "slowest_steps_per_s": slowest["steps_per_s"],
+            "slowest_wall_ms_per_step": slowest["wall_ms_per_step"],
+            "events_per_s": B * slowest["steps_per_s"],
+            "host_staged_bytes": [r["host_staged_bytes"] for r in runs],
+            "host_staged_mb_per_step": [r["host_staged_mb_per_step"]
+                                        for r in runs],
+            "collective_mb_per_step": [r["collective_mb_per_step"]
+                                       for r in runs],
+            "emit_rounds_per_step": runs[0]["emit_rounds_per_step"],
+            "host_syncs_per_step": runs[0]["host_syncs_per_step"],
+            "capacity": runs[0]["capacity"],
+            "launches": launches,
+            "launches_per_rank": [r["launches"] for r in runs]}
+        log(f"Q5 across ranks, {plan} plan: every rank's columns equal the "
+            f"numpy oracle exactly, drops 0; {json.dumps(res[plan])}")
+    res["profile"] = per_rank[0]["profile"]
+    prof = res["profile"]
+    log(f"route plan per step on rank 0: wall {prof['wall_ms_per_step']:.4f}"
+        f" ms, device {prof['device_ms_per_step']:.4f} ms, idle share "
+        f"{prof['device_idle_share']:.4f}; top device time:")
+    for name, ms, c in prof["top_device"]:
+        log(f"  {ms:.5f} ms  x{c:.2f}  {name}")
+    log("  top host self time:")
+    for name, ms, c in prof["top_host_self"]:
+        log(f"  {ms:.5f} ms  x{c:.2f}  {name}")
+    return res
+
+
+# -- phase 10 ----------------------------------------------------------------
+def route_timing_cases(dev):
+    """Each route kernel at the 4-rank path's shape (rank 0's slice of a Q5
+    step: 16 384 events, 4 destinations of 4 096 buckets, C = 8 192): its
+    three calls (kernel, plain version, library yardstick or None) and its
+    bound, the bytes it must move at 3.35 TB/s (inputs read once, outputs
+    written once; about 0.025 us for the counts, so the launch dominates
+    every call here).  The yardstick of the counts is one
+    ``torch.bincount``, which the port never calls; the offsets and the
+    pack have no single PyTorch call."""
+    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
+    ev = {k: torch.from_numpy(v).to(dev)
+          for k, v in q5_events(gen, rank_seqs(7, 0)).items()}
+    k_loc, cap = K // RANKS, max(8, int(B // RANKS / RANKS * 2.0))
+    pids = torch.div(ev["key"], k_loc, rounding_mode="floor")
+    valid = ev["valid"]
+    n, p = pids.numel(), RANKS
+    binned = torch.where(valid, pids, p)
+    library = torch.bincount(binned, minlength=p + 1)[:p].to(torch.int32)
+    if not torch.equal(library, route_counts(pids, valid, p)):
+        raise AssertionError("bincount yardstick differs from route_counts")
+    pack_args = (ev["ts"], ev["key"], ev["value"], valid, RANKS, k_loc, cap)
+    return {
+        "route_counts": ({
+            "kernel": lambda: route_counts(pids, valid, p),
+            "plain": lambda: route_counts_plain(pids, valid, p),
+            "library": lambda: torch.bincount(binned, minlength=p + 1)},
+            n * 5 + p * 4),
+        "route_offsets": ({
+            "kernel": lambda: route_offsets(pids, valid, p),
+            "plain": lambda: route_offsets_plain(pids, valid, p)},
+            n * 5 + 2 * p * 4),
+        "route_pack": ({
+            "kernel": lambda: route_pack(*pack_args),
+            "plain": lambda: route_pack_plain(*pack_args)},
+            n * 13 + RANKS * 4 * cap * 4 + n * 4 + 4),
+    }
+
+
+def time_route(dev, entries: list) -> None:
+    """The route kernels by CUDA events over 500 back-to-back calls, in
+    turns, beside their plain versions and yardstick; before any profiler
+    runs.  Fills ``entries`` (phase 3's, by name)."""
+    by_name = {e["name"]: e for e in entries}
+    for name, (fns, nbytes) in route_timing_cases(dev).items():
+        times = {}
+        for which in ("plain", "kernel", "library", "kernel", "plain"):
+            if which in fns:
+                times.setdefault(which, []).append(cuda_ms(fns[which],
+                                                           iters=500))
+        by_name[name].update({
+            "ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+            "library_ms": min(times["library"]) if "library" in times
+            else None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "events_ms": times})
+        log(f"{name} timing at the path's shape: "
+            f"{json.dumps(by_name[name])}")
+
+
+def profile_route(dev, entries: list) -> None:
+    """Device time alone (profiler) of each route kernel's calls."""
+    by_name = {e["name"]: e for e in entries}
+    for name, (fns, _) in route_timing_cases(dev).items():
+        dev_only = {which: device_ms(fn) for which, fn in fns.items()}
+        by_name[name].update({"device_ms": dev_only["kernel"],
+                              "plain_device_ms": dev_only["plain"],
+                              "library_device_ms": dev_only.get("library")})
+        log(f"{name} device time (profiler) ms {json.dumps(dev_only)}")
+
+
 def time_window_agg(dev) -> dict:
     """window_agg at the main path's shape, as accumulate calls it (one
     step's Q5 batch added at the flat index into the flattened (R, K)
@@ -911,6 +1337,18 @@ def profile_serve(dev, cfg, params, step_ms) -> dict:
     return res
 
 
+def ranks_only(name: str, smi: str) -> int:
+    """``--ranks``: phase 9 alone (after the card and the build), for a
+    host with 4 cards, where the ranks run over NCCL."""
+    ranks = q5_ranks()
+    print(json.dumps({"q5_ranks": ranks}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -919,8 +1357,15 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = card()
     build()
+    if sys.argv[1:] == ["--ranks"]:
+        return ranks_only(name, smi)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     window = check_window_agg(dev)
     attn = check_decode_attention(dev)
+    routes = check_route(dev)
     path = main_path(dev, MAIN_STEPS)
     window["launches"] = path["window_agg_launches"]
     lat = latency(dev, LATENCY_STEPS)
@@ -933,8 +1378,13 @@ def main() -> int:
     tf32 = tf32_step(dev, cfg, server)
     del server
     vs_cpu = card_vs_cpu(dev)
+    ranks = q5_ranks()
+    for entry in routes:
+        entry["launches"] = ranks["route"]["launches"][entry["name"]]
     attn.update(time_decode_attention(dev))
+    time_route(dev, routes)
     window.update(time_window_agg(dev))
+    profile_route(dev, routes)
     profile_decode_attention(dev, attn)
     prof = profile_main_path(dev, path["wall_ms_per_step"])
     serve_prof = profile_serve(dev, cfg, params, step_ms)
@@ -943,8 +1393,9 @@ def main() -> int:
     print(json.dumps({"main_path": path, "latency": lat, "summing": summ,
                       "profile": prof, "serve": serve, "serve_tf32": tf32,
                       "serve_card_vs_cpu": vs_cpu,
-                      "serve_profile": serve_prof, "total_s": total}))
-    print(json.dumps({"kernels": [window, attn]}))
+                      "serve_profile": serve_prof, "q5_ranks": ranks,
+                      "total_s": total}))
+    print(json.dumps({"kernels": [window, attn, *routes]}))
     print(smi)
     # the run uses one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {

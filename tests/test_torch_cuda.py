@@ -14,7 +14,8 @@ both widen the same bf16 values to f32 before adding.  ``decode_attention``:
 kernel to its oracle in f32 (the kernel sums in another order and scales q
 where the plain version scales the scores); both sides widen the same
 bf16 or f16 inputs to f32 and sum in f32, so a half type earns no wider
-tolerance.
+tolerance.  ``route_counts``, ``route_offsets`` and ``route_pack``:
+integers, exactly.
 """
 
 import numpy as np
@@ -23,8 +24,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import route  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, decode_attention_plain)
+from repro_torch.kernels.route import (  # noqa: E402
+    route_counts, route_counts_plain, route_offsets, route_offsets_plain,
+    route_pack, route_pack_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
     window_agg, window_agg_flat_into_, window_agg_flat_plain_into_,
     window_agg_plain_into_)
@@ -204,3 +209,95 @@ def test_server_on_cuda_matches_cpu(cuda):
     on_card, steps = drain(cuda)
     assert decode_attention.launches - before == cfg.n_layers * steps
     assert on_card == drain("cpu")[0]
+
+
+# -- route_counts, route_offsets, route_pack -----------------------------------
+
+def _pids(n, p, seed, device, lo=0, hi=None):
+    rng = np.random.RandomState(seed)
+    pids = rng.randint(lo, p if hi is None else hi, n).astype(np.int32)
+    return (torch.from_numpy(pids).to(device),
+            torch.from_numpy(rng.rand(n) < 0.7).to(device))
+
+
+@pytest.mark.parametrize("n,p,lo,hi", [
+    (16384, 4, 0, 4),           # the route plan's shape: warp votes
+    (512, 128, 0, 128),         # test_kernels.py's shapes: shared bins
+    (2048, 256, 0, 256),
+    (4096, 512, 0, 512),
+    (65536, 16384, 0, 16384),   # a key-bucket histogram: global atomics
+    (1000, 7, -3, 10),          # ragged, pids outside [0, P)
+    (3001, 33, -1, 40),
+    (5000, 12289, -9, 12300),
+    (0, 5, 0, 5),               # no rows: no launch
+])
+def test_route_counts_kernel_matches_plain(cuda, n, p, lo, hi):
+    pids, valid = _pids(n, p, n + p, cuda, lo, hi)
+    before = (route_counts.launches, route_offsets.launches)
+    counts = route_counts(pids, valid, p)
+    c2, offsets = route_offsets(pids, valid, p)
+    torch.cuda.synchronize()
+    launched = 1 if n else 0
+    assert (route_counts.launches, route_offsets.launches) == (
+        before[0] + 2 * launched, before[1] + launched)
+    want_c, want_o = route_offsets_plain(pids, valid, p)
+    assert torch.equal(counts, route_counts_plain(pids, valid, p))
+    assert torch.equal(counts, want_c) and torch.equal(c2, want_c)
+    assert torch.equal(offsets, want_o)
+
+
+def _pack_args(n_rows, n, k_loc, seed, device, oob=False, skew=None):
+    rng = np.random.RandomState(seed)
+    span = (-k_loc * (n + 2), k_loc * (n + 2)) if oob else (0, n * k_loc)
+    key = rng.randint(*span, n_rows)
+    if skew is not None:
+        owner = rng.randint(skew * k_loc, (skew + 1) * k_loc, n_rows)
+        key = np.where(rng.rand(n_rows) < 0.8, owner, key)
+    arrays = (rng.randint(0, 10_000, n_rows).astype(np.int32),
+              key.astype(np.int32), rng.randn(n_rows).astype(np.float32),
+              rng.rand(n_rows) < 0.85)
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("n_rows,n,k_loc,cap,oob,skew", [
+    (16384, 4, 4096, 8192, False, None),    # the 4-rank Q5 path's shape
+    (64, 4, 16, 32, False, 3),              # overflow to the last shard
+    (1000, 8, 8, 250, True, None),          # keys outside [0, K)
+    (300, 3, 5, 8, True, 1),
+    (2049, 1, 10, 4096, False, None),       # one shard; a ragged tile
+    (5000, 32, 3, 20, True, None),          # the most destinations
+    (0, 4, 8, 8, False, None),
+])
+def test_route_pack_kernel_matches_plain(cuda, n_rows, n, k_loc, cap, oob,
+                                         skew):
+    args = _pack_args(n_rows, n, k_loc, n_rows + n, cuda, oob, skew)
+    before = (route_counts.launches, route_offsets.launches,
+              route_pack.launches)
+    got = route_pack(*args, n, k_loc, cap)
+    torch.cuda.synchronize()
+    launched = 1 if n_rows else 0
+    assert (route_counts.launches, route_offsets.launches,
+            route_pack.launches) == tuple(b + launched for b in before)
+    want = route_pack_plain(*args, n, k_loc, cap)
+    assert torch.equal(got.send, want.send)
+    assert torch.equal(got.pos, want.pos)
+    assert int(got.n_overflow) == int(want.n_overflow)
+
+
+def test_route_failed_launch_raises(cuda, monkeypatch):
+    """A launch the runtime refuses (here: on a device that does not
+    exist) raises, counts nothing, and falls back to nothing."""
+    pids, valid = _pids(100, 4, 0, cuda)
+    monkeypatch.setattr(route, "_stream", lambda t: (99, 0))
+    before = route_counts.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        route_counts(pids, valid, 4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        route_pack(pids, pids, valid.float(), valid, 4, 1, 8)
+    assert route_counts.launches == before
+
+
+def test_route_rejects_non_contiguous(cuda):
+    pids, valid = _pids(64, 4, 0, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        route_counts(pids[::2], valid[::2], 4)

@@ -196,7 +196,7 @@ def test_library_named_by_source_hash():
     """One library per csrc/*.cu under the git-ignored build directory,
     named by a hash of its source so an edited kernel is rebuilt."""
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "decode_attn", "window_agg"]
+        "decode_attn", "route", "window_agg"]
     path = _build.library_path("window_agg")
     assert path.parent == _build.BUILD_DIR
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
