@@ -76,7 +76,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.route import (  # noqa: E402
@@ -368,21 +368,59 @@ def cache_view(rng, b, s, hk, dh, dtype, dev):
 def check_decode_attention(dev) -> dict:
     """decode_attention against its plain version at the serve shape
     (8 slots, 12 query heads over 2 kv heads, dh 128, S = 1024) through
-    the cache's seq-major view, and at edge shapes; f32 and bf16 within
-    2e-5."""
+    the cache's seq-major view, and at the kernel's edges: n_valid of 1,
+    around one stage (64 positions) and one ring (192 positions in
+    bf16/f16, 128 in f32 at dh 128), the last split ending inside a stage,
+    G = 1, 7, 16 and 24 (one to three groups of 8 query rows), dh 16 to
+    256, f16 and bf16 at the serve and decode_32k widths with pos >= S;
+    every type within 2e-5.  Then one cache twice (no new tensor map, the
+    same bits), k and v with different strides, and views TMA cannot
+    describe (ValueError, no launch).  First, the library's block for
+    every type and dh 16 to 256 against the wrapper's CPU mirror
+    (``decode_block``)."""
     rng = np.random.RandomState(1)
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    for dt in (f32, bf16, f16):
+        for dh in (16, 64, 128, 256):
+            card = decode_block(dt, dh, dev.index or 0)
+            log(f"decode_attention block {str(dt)[6:]} dh {dh}: {card}")
     cases = [(f"serve_{str(dt)[6:]}_pos{pos}", 8, 12, 2, 1024, 128, pos, dt)
              for dt in (f32, bf16) for pos in (0, 511, 1023)]
     cases += [("g1", 1, 16, 16, 1024, 128, 700, f32),
               ("hk8", 1, 24, 8, 1024, 128, 1023, f32),
               ("ragged_s", 2, 12, 2, 1000, 128, 999, f32),
               ("pos_past_s", 2, 12, 2, 1000, 128, 1500, f32)]
-    errs = {f32: 0.0, bf16: 0.0}
+    cases += [(f"n_valid{pos + 1}_{str(dt)[6:]}", 8, 12, 2, 1024, 128, pos,
+               dt) for dt, edges in ((bf16, (62, 63, 64, 191, 192)),
+                                     (f16, (63, 64)),
+                                     (f32, (62, 63, 64, 127, 128)))
+              for pos in edges]
+    cases += [("split_ends_in_stage_bf16", 1, 12, 2, 1000, 128, 999, bf16),
+              ("split_ends_in_stage_f32", 1, 12, 2, 1000, 128, 999, f32),
+              ("g1_bf16", 2, 16, 16, 700, 128, 650, bf16),
+              ("g7_bf16", 2, 56, 8, 777, 128, 776, bf16),
+              ("g7_f32", 2, 56, 8, 777, 128, 776, f32),
+              ("g16_bf16", 2, 16, 1, 900, 128, 899, bf16),
+              ("g16_f32", 2, 16, 1, 900, 128, 899, f32),
+              ("g24_f16", 1, 24, 1, 500, 128, 400, f16)]
+    cases += [(f"dh{dh}_{str(dt)[6:]}", 4, 8, 2, 600, dh, 599, dt)
+              for dh in (16, 64, 256) for dt in (bf16, f16, f32)]
+    cases += [(f"serve_{str(dt)[6:]}_past_s", 8, 12, 2, 1024, 128, 1500, dt)
+              for dt in (bf16, f16)]
+    d32 = SHAPES["decode_32k"]
+    cases += [(f"decode_32k_{str(dt)[6:]}_past_s", d32.global_batch, 12, 2,
+               d32.seq_len, 128, d32.seq_len + 100, dt) for dt in (bf16, f16)]
+    errs = {f32: 0.0, bf16: 0.0, f16: 0.0}
+    gen = torch.Generator(device=dev).manual_seed(11)
     for name, b, h, hk, s, dh, pos, dt in cases:
-        q = torch.from_numpy(rng.randn(b, h, dh).astype(np.float32)).to(
-            dev, dt)
-        k, v = (cache_view(rng, b, s, hk, dh, dt, dev) for _ in range(2))
+        if b * s > 100_000:       # decode_32k: drawn on the card
+            q = torch.randn(b, h, dh, generator=gen, device=dev).to(dt)
+            k, v = (torch.randn(b, s, hk, dh, generator=gen, device=dev)
+                    .to(dt).permute(0, 2, 1, 3) for _ in range(2))
+        else:
+            q = torch.from_numpy(rng.randn(b, h, dh).astype(np.float32)).to(
+                dev, dt)
+            k, v = (cache_view(rng, b, s, hk, dh, dt, dev) for _ in range(2))
         before = decode_attention.launches
         got = decode_attention(q, k, v, pos)
         torch.cuda.synchronize()
@@ -395,10 +433,115 @@ def check_decode_attention(dev) -> dict:
         errs[dt] = max(errs[dt], err)
         log(f"decode_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"pos {pos} {dt} max_abs_err={err:.3g} ok")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    decode_attention_twice(dev)
+    errs[f32] = max(errs[f32], decode_attention_mixed_views(dev))
+    decode_attention_rejects(dev)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
             "replaces": "src/repro/kernels/decode_attn.py:65",
-            "max_abs_err": errs[f32], "max_abs_err_bf16": errs[bf16]}
+            "max_abs_err": errs[f32], "max_abs_err_bf16": errs[bf16],
+            "max_abs_err_f16": errs[f16]}
+
+
+def decode_block(dtype, dh, idx):
+    """The library's block for ``dtype`` and ``dh`` (tile, stages, shared
+    memory; blocks an SM by the occupancy query), which the wrapper plans
+    with on a card, held to the wrapper's CPU mirror that the plan's CPU
+    tests read: equal, but for blocks an SM, where the mirror is the floor
+    that ``__launch_bounds__`` and shared memory guarantee (registers may
+    allow more) and must be exact at dh 128, the path's."""
+    cfg = decode_attn.kernel_config(dtype, dh)
+    card = decode_attn.card_config(dtype, dh, idx)
+    blocks_ok = (card.blocks_per_sm == cfg.blocks_per_sm if dh == 128
+                 else card.blocks_per_sm >= cfg.blocks_per_sm)
+    if not blocks_ok or dataclasses.replace(
+            card, blocks_per_sm=cfg.blocks_per_sm) != cfg:
+        raise AssertionError(f"decode_attention block for {dtype} dh {dh}: "
+                             f"the card's {card}, the wrapper's mirror {cfg}")
+    return card
+
+
+def decode_attention_twice(dev) -> None:
+    """One cache read twice at one position, then at another: the second
+    call encodes no tensor map and gives the same bits, and the arrival
+    counters carry nothing over (each result against the plain version)."""
+    rng = np.random.RandomState(2)
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.from_numpy(rng.randn(8, 12, 128).astype(np.float32)).to(
+            dev, dt)
+        k, v = (cache_view(rng, 8, 1024, 2, 128, dt, dev) for _ in range(2))
+        first = decode_attention(q, k, v, 900)
+        encoded = decode_attn.maps_encoded()
+        second = decode_attention(q, k, v, 900)
+        third = decode_attention(q, k, v, 300)
+        torch.cuda.synchronize()
+        if decode_attn.maps_encoded() != encoded:
+            raise AssertionError("a second call on one cache encoded a map")
+        if not torch.equal(first, second):
+            raise AssertionError("two calls on one cache differ")
+        for got, pos in ((second, 900), (third, 300)):
+            torch.testing.assert_close(
+                got, decode_attention_plain(q, k, v, pos), rtol=ATTN_TOL,
+                atol=ATTN_TOL)
+        log(f"decode_attention twice on one cache {dt}: maps cached, "
+            f"counters clean, ok")
+
+
+def decode_attention_mixed_views(dev) -> float:
+    """k through the seq-major cache view and v head-major contiguous, and
+    the other way round (each gets its own tensor map), within 2e-5; the
+    largest f32 error."""
+    rng = np.random.RandomState(3)
+    err32 = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.from_numpy(rng.randn(4, 12, 128).astype(np.float32)).to(
+            dev, dt)
+        seq = cache_view(rng, 4, 700, 2, 128, dt, dev)
+        head = torch.from_numpy(rng.randn(4, 2, 700, 128).astype(
+            np.float32)).to(dev, dt)
+        for k, v in ((seq, head), (head, seq)):
+            before = decode_attention.launches
+            got = decode_attention(q, k, v, 650)
+            torch.cuda.synchronize()
+            if decode_attention.launches != before + 1:
+                raise AssertionError("mixed views: the kernel did not launch")
+            want = decode_attention_plain(q, k, v, 650)
+            torch.testing.assert_close(got, want, rtol=ATTN_TOL,
+                                       atol=ATTN_TOL)
+            err = float((got - want).abs().max())
+            if dt == torch.float32:
+                err32 = max(err32, err)
+            log(f"decode_attention k strides {k.stride()} v strides "
+                f"{v.stride()} {dt}: max_abs_err={err:.3g} ok")
+    return err32
+
+
+def decode_attention_rejects(dev) -> None:
+    """Views TMA cannot describe raise ValueError and launch nothing."""
+    q = torch.zeros(1, 4, 8, device=dev)
+    flat = torch.zeros(1 + 64 * 2 * 8, device=dev)
+    bad = {"base off 16 bytes":
+           (q, flat[1:].view(1, 64, 2, 8).permute(0, 2, 1, 3)),
+           "row stride 36 bytes":
+           (q, torch.zeros(1, 64, 2, 9, device=dev)[..., :8].permute(
+               0, 2, 1, 3)),
+           "bf16 rows of 24 bytes":
+           (torch.zeros(1, 4, 12, device=dev, dtype=torch.bfloat16),
+            torch.zeros(1, 2, 64, 12, device=dev, dtype=torch.bfloat16))}
+    before = decode_attention.launches
+    for what, (qq, kv) in bad.items():
+        try:
+            decode_attention(qq, kv, kv, 5)
+        except ValueError as e:
+            if "16" not in str(e):
+                raise AssertionError(f"{what}: {e}") from e
+            log(f"decode_attention rejects {what}: {e}")
+        else:
+            raise AssertionError(f"{what}: no ValueError")
+    if decode_attention.launches != before:
+        raise AssertionError("a rejected view launched the kernel")
 
 
 def check_route(dev) -> list:
@@ -1252,6 +1395,45 @@ def decode_timing_cases(dev):
         torch.cuda.empty_cache()
 
 
+def ptxas_report(name: str, needle: str) -> dict:
+    """``{entry function: [ptxas lines]}`` for the entries of kernel
+    library ``name`` whose mangled name holds ``needle``, from the
+    ``-Xptxas -v`` log the build keeps."""
+    text = _build.library_path(name).with_suffix(".log").read_text()
+    report, entry = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and needle in entry and (
+                "registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(line.strip())
+    return report
+
+
+def decode_kernel_resources(dev, dtype, dh) -> dict:
+    """The decode kernel's block for ``dtype`` and ``dh``: registers and
+    spills (runtime attributes, and ptxas' report of the instantiation),
+    tile, stages and shared memory a block (the library's) and blocks
+    resident an SM (the occupancy query), held to the wrapper's CPU mirror
+    (``decode_block``)."""
+    idx = dev.index or 0
+    cfg = decode_attn.kernel_config(dtype, dh)
+    card = decode_block(dtype, dh, idx)
+    blocks, regs, spill = decode_attn.occupancy(dtype, dh, idx)
+    tag = {torch.float32: "attn_kernelIfLi", torch.bfloat16:
+           "attn_kernelI13__nv_bfloat16Li", torch.float16:
+           "attn_kernelI6__halfLi"}[dtype] + ("128E" if dh <= 128 else "256E")
+    res = {"dtype": str(dtype)[6:], "dh": dh, "registers": regs,
+           "spill_bytes_a_thread": spill,
+           "smem_bytes_a_block": card.smem_bytes,
+           "stages": card.stages, "tile": card.tile,
+           "blocks_an_sm": blocks, "blocks_an_sm_mirror": cfg.blocks_per_sm,
+           "ptxas": [ln for lines in ptxas_report("decode_attn", tag).values()
+                     for ln in lines]}
+    log(f"decode_attention block: {json.dumps(res)}")
+    return res
+
+
 def time_decode_attention(dev) -> dict:
     """decode_attention beside its plain version and its library yardstick
     by CUDA events, in turns, and its bound; before any profiler runs."""
@@ -1271,7 +1453,10 @@ def time_decode_attention(dev) -> dict:
             "library_ms": min(times["library"]) if "library" in times
             else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "events_ms": times}
+            "events_ms": times,
+            "tb_per_s": nbytes / (min(times["kernel"]) * 1e-3) / 1e12,
+            "peak_tb_per_s": HBM_BYTES_PER_S / 1e12,
+            "block": decode_kernel_resources(dev, dt, dh)}
         log(f"decode_attention timing {label}: {json.dumps(res[label])}")
     serve = res["serve"]
     return {"ms": serve["ms"], "plain_ms": serve["plain_ms"],
@@ -1291,8 +1476,13 @@ def profile_decode_attention(dev, timing: dict) -> None:
         entry.update({"device_ms": dev_only["kernel"],
                       "plain_device_ms": dev_only["plain"],
                       "library_device_ms": dev_only.get("library")})
+        if dev_only["kernel"]:
+            entry["device_tb_per_s"] = (entry["bytes"] / (
+                dev_only["kernel"] * 1e-3) / 1e12)
         log(f"decode_attention device time {label} (profiler) ms "
-            f"{json.dumps(dev_only)}")
+            f"{json.dumps(dev_only)}; "
+            f"{entry.get('device_tb_per_s', 0):.3f} TB/s of the card's "
+            f"{HBM_BYTES_PER_S / 1e12:.2f}")
     for key in ("device_ms", "plain_device_ms", "library_device_ms"):
         timing[key] = timing["serve_shape"][key]
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` under the checkout's root (listed
-in ``.gitignore``); the hash is of the source, so an edited kernel is never
-served from a stale library.  Building happens at first use, in
+in ``.gitignore``); the hash is of the source and of every header
+(``csrc/*.cuh``) it may include, so an edited kernel is never served from
+a stale library.  Building happens at first use, in
 :func:`load`, from the repository's sources only.
 
 Nothing here runs at import: this module is imported on machines with no
@@ -40,9 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 @functools.cache

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import route  # noqa: E402
+from repro_torch.kernels import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.route import (  # noqa: E402
@@ -149,6 +150,8 @@ def test_executor_on_cuda_matches_cpu(cuda):
 
 # -- decode_attention ---------------------------------------------------------
 
+# 64-position stages; at dh 128, 3 stages in bf16/f16 (a 192-position
+# ring), 2 in f32 (128 positions); 8 query rows a block
 @pytest.mark.parametrize("b,h,hk,s,dh,pos,dtype", [
     (8, 12, 2, 1024, 128, 1023, "float32"),    # the serve shape, full
     (8, 12, 2, 1024, 128, 0, "float32"),
@@ -157,6 +160,43 @@ def test_executor_on_cuda_matches_cpu(cuda):
     (1, 24, 8, 640, 128, 639, "float16"),      # Hk = 8
     (2, 16, 1, 1000, 64, 2000, "float32"),     # ragged S, pos >= S, G = 16
     (3, 4, 2, 77, 16, 40, "float32"),          # a reduced model's heads
+    # n_valid of 1, around one tile (= one stage) and one full ring
+    (8, 12, 2, 1024, 128, 0, "bfloat16"),
+    (8, 12, 2, 1024, 128, 62, "bfloat16"),
+    (8, 12, 2, 1024, 128, 63, "bfloat16"),
+    (8, 12, 2, 1024, 128, 64, "float16"),
+    (8, 12, 2, 1024, 128, 191, "bfloat16"),
+    (8, 12, 2, 1024, 128, 192, "bfloat16"),
+    (8, 12, 2, 1024, 128, 62, "float32"),
+    (8, 12, 2, 1024, 128, 63, "float32"),
+    (8, 12, 2, 1024, 128, 64, "float32"),
+    (8, 12, 2, 1024, 128, 127, "float32"),
+    (8, 12, 2, 1024, 128, 128, "float32"),
+    # 16 splits of 64 positions, the last split (40) ending inside a stage
+    (1, 12, 2, 1000, 128, 999, "bfloat16"),
+    (1, 12, 2, 1000, 128, 999, "float32"),
+    # G = 1, 7 (llava-next-34b's 56 / 8), 16 and 24 (two and three row
+    # groups of 8)
+    (2, 16, 16, 700, 128, 650, "bfloat16"),
+    (2, 56, 8, 777, 128, 776, "bfloat16"),
+    (2, 56, 8, 777, 128, 776, "float32"),
+    (2, 16, 1, 900, 128, 899, "bfloat16"),
+    (2, 16, 1, 900, 128, 899, "float32"),
+    (1, 24, 1, 500, 128, 400, "float16"),
+    # dh of 16, 64 and 256 in each path
+    (4, 8, 2, 600, 16, 599, "bfloat16"),
+    (4, 8, 2, 600, 64, 599, "float16"),
+    (4, 8, 2, 600, 64, 599, "float32"),
+    (4, 8, 2, 600, 256, 599, "bfloat16"),
+    (4, 8, 2, 600, 256, 599, "float32"),
+    # rows TMA cannot swizzle (80 bytes): the last k-step half past dh
+    (2, 8, 2, 300, 40, 299, "bfloat16"),
+    (2, 8, 2, 300, 20, 299, "float32"),
+    # f16 and bf16 at the serve and decode_32k widths, pos >= S
+    (8, 12, 2, 1024, 128, 1500, "float16"),
+    (8, 12, 2, 1024, 128, 1500, "bfloat16"),
+    (2, 12, 2, 32768, 128, 40000, "bfloat16"),
+    (2, 12, 2, 32768, 128, 40000, "float16"),
 ])
 def test_decode_kernel_matches_plain(cuda, b, h, hk, s, dh, pos, dtype):
     """Through the model's seq-major cache view, read in place."""
@@ -172,6 +212,68 @@ def test_decode_kernel_matches_plain(cuda, b, h, hk, s, dh, pos, dtype):
     assert got.shape == (b, h, dh) and got.dtype == torch.float32
     torch.testing.assert_close(got, decode_attention_plain(q, k, v, pos),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_twice_on_one_cache(cuda, dtype):
+    """The same cache twice, then at another position: the second call
+    encodes no tensor map (the cache serves it) and gives the same bits;
+    the arrival counters carry nothing from one call to the next."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(7)
+    q = torch.from_numpy(rng.randn(8, 12, 128).astype(np.float32)).to(cuda, dt)
+    k, v = (torch.from_numpy(rng.randn(8, 1024, 2, 128).astype(np.float32))
+            .to(cuda, dt).permute(0, 2, 1, 3) for _ in range(2))
+    first = decode_attention(q, k, v, 900)
+    encoded = decode_attn.maps_encoded()
+    second = decode_attention(q, k, v, 900)
+    third = decode_attention(q, k, v, 300)
+    torch.cuda.synchronize()
+    assert decode_attn.maps_encoded() == encoded
+    assert torch.equal(first, second)
+    for got, pos in ((second, 900), (third, 300)):
+        torch.testing.assert_close(got, decode_attention_plain(q, k, v, pos),
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_k_and_v_with_different_strides(cuda, dtype):
+    """k read through the seq-major cache view, v head-major and
+    contiguous (and the other way round): each gets its own tensor map."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(rng.randn(4, 12, 128).astype(np.float32)).to(cuda, dt)
+    seq = torch.from_numpy(rng.randn(4, 700, 2, 128).astype(np.float32)).to(
+        cuda, dt).permute(0, 2, 1, 3)
+    head = torch.from_numpy(rng.randn(4, 2, 700, 128).astype(np.float32)).to(
+        cuda, dt)
+    for k, v in ((seq, head), (head, seq)):
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, 650)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        torch.testing.assert_close(got, decode_attention_plain(q, k, v, 650),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_decode_kernel_rejects_views_tma_cannot_describe(cuda):
+    """A base or a row stride off 16 bytes raises ValueError naming the
+    constraint; nothing launches and nothing falls back."""
+    q = torch.zeros(1, 4, 8, device=cuda)
+    flat = torch.zeros(1 + 64 * 2 * 8, device=cuda)
+    off = flat[1:].view(1, 64, 2, 8).permute(0, 2, 1, 3)   # base + 4 bytes
+    padded = torch.zeros(1, 64, 2, 9, device=cuda)[..., :8].permute(
+        0, 2, 1, 3)                                          # rows 36 bytes
+    half = torch.zeros(1, 2, 64, 12, device=cuda, dtype=torch.bfloat16)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q, off, off, 5)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        decode_attention(q, padded, padded, 5)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        decode_attention(torch.zeros(1, 4, 12, device=cuda,
+                                     dtype=torch.bfloat16), half, half, 5)
+    assert decode_attention.launches == before
 
 
 def test_decode_kernel_rejects_strided_head_dim(cuda):

@@ -202,3 +202,15 @@ def test_library_named_by_source_hash():
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
     assert path.name.startswith("window_agg-") and path.suffix == ".so"
     assert path == _build.library_path("window_agg")
+
+
+def test_library_name_covers_headers(monkeypatch, tmp_path):
+    """An edited header under csrc/ renames every library, so no kernel
+    that includes it is served from a stale build."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert _build.library_path("k") != before

@@ -33,8 +33,9 @@ from repro.kernels import ops, ref  # noqa: E402
 from repro.launch.serve import BatchedLMServer as JaxServer  # noqa: E402
 from repro.models import lm as jax_lm, transformer as jax_tf  # noqa: E402
 from repro_torch.configs import REGISTRY, get_config  # noqa: E402
+from repro_torch.kernels import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
-    decode_attention, split_plan)
+    decode_attention, kernel_config, split_plan)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm, transformer  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
@@ -166,9 +167,66 @@ def test_decode_attention_rejects_bad_inputs():
 def test_split_plan_covers_positions(B, H, Hk, n_valid):
     """The kernel's splits cover [0, n_valid) with none empty, at least 64
     positions each unless one split holds all."""
-    splits, chunk = split_plan(B, H, Hk, n_valid, sms=132)
+    cfg = kernel_config(torch.float32, 128)
+    splits, chunk = split_plan(B, H, Hk, n_valid, 132, cfg)
     assert splits >= 1 and chunk * (splits - 1) < n_valid <= chunk * splits
     assert splits == 1 or chunk >= 64
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n_valid", [1, 31, 32, 33, 63, 64, 65, 95, 96, 97,
+                                     191, 192, 193, 1000, 1024, 32768])
+def test_split_plan_covers_each_position_once(dtype, n_valid):
+    """Splits [i * chunk, min((i + 1) * chunk, n_valid)) partition the
+    positions: each covered exactly once, every split non-empty and whole
+    stages but the last (around one tile, one stage and one ring of each
+    type)."""
+    cfg = kernel_config(getattr(torch, dtype), 128)
+    for B, H, Hk in [(8, 12, 2), (1, 56, 8), (128, 12, 2), (1, 16, 16)]:
+        splits, chunk = split_plan(B, H, Hk, n_valid, 132, cfg)
+        assert splits == 1 or chunk % cfg.tile == 0
+        seen = np.zeros(n_valid, np.int64)
+        for i in range(splits):
+            lo, hi = i * chunk, min((i + 1) * chunk, n_valid)
+            assert lo < hi
+            seen[lo:hi] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dh", [8, 16, 64, 96, 128, 256])
+def test_kernel_config_fits_shared_memory(dtype, dh):
+    """A block's shared memory stays within the 227 KB a block may have,
+    with at least two stages, and the ring can hold the warps' merge."""
+    cfg = kernel_config(getattr(torch, dtype), dh)
+    es = 4 if dtype == "float32" else 2
+    assert 2 <= cfg.stages <= decode_attn.MAX_STAGES
+    assert cfg.smem_bytes <= decode_attn.SMEM_PER_BLOCK
+    assert cfg.blocks_per_sm >= 1
+    assert cfg.blocks_per_sm * (cfg.smem_bytes
+                                + decode_attn.SMEM_RESERVED_PER_BLOCK) \
+        <= decode_attn.SMEM_PER_SM
+    ring = cfg.stages * 2 * cfg.tile * dh * es
+    assert ring >= (decode_attn.CONSUMER_WARPS * decode_attn.ROWS_PER_BLOCK
+                    * dh * 4)
+    assert cfg.blocks_per_sm <= (2 if dh <= 128 else 1)   # launch bounds
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "serve"])
+def test_split_plan_fills_whole_waves(shape):
+    """decode_32k (bf16) and the serve shape (f32) fill the 132 SMs with no
+    ragged last wave: with k blocks on the busiest SM, the grid holds at
+    least 90 % of k blocks on every SM, and k never exceeds what an SM
+    holds at once."""
+    B, H, Hk, n_valid, dtype = {
+        "decode_32k": (128, 12, 2, 32768, torch.bfloat16),
+        "serve": (8, 12, 2, 1024, torch.float32)}[shape]
+    cfg = kernel_config(dtype, 128)
+    splits, _ = split_plan(B, H, Hk, n_valid, 132, cfg)
+    blocks = B * Hk * -(-(H // Hk) // decode_attn.ROWS_PER_BLOCK) * splits
+    per_sm = -(-blocks // 132)
+    assert per_sm <= cfg.blocks_per_sm, (splits, blocks)
+    assert blocks >= 0.9 * per_sm * 132, (splits, blocks)
 
 
 # -- the model ----------------------------------------------------------------
