@@ -10,20 +10,26 @@ CUDA card and the CUDA toolkit:
 host with 4 cards: the ranks over NCCL, a card each).
 
 It drives three paths of the port: device-tier NEXMark Q5 on one card
-(``window_agg``), LM serving (``decode_attention``) and Q5 across 4 ranks
-under the route exchange (``route_counts``, ``route_offsets``,
-``route_pack``, and ``window_agg`` on every rank).  Phases, in order; any
-failure ends the run with a non-zero exit and no result line:
+(``window_agg``'s library: one fused ``accumulate`` launch a step), LM
+serving (``decode_attention``) and Q5 across 4 ranks under the route
+exchange (one ``route_pack`` cluster launch and one ``accumulate`` a rank
+a step).  The ``window_agg`` op, ``route_counts`` and ``route_offsets``
+are held in phases 3 and 10 as the TPU kernels' counterparts and launch
+on no path.  Phases, in order; any failure ends the run with a non-zero
+exit and no result line:
 
 1. card: its name and power limit (``nvidia-smi``);
 2. build: every kernel from ``src/repro_torch/kernels/csrc`` with
    ``nvcc``, one process per source, all started together;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
-   card, at its path's shapes and at edge shapes;
+   card, at its path's shapes and at edge shapes (the fused accumulate
+   with the whole window state compared; route_pack also over memory
+   poisoned first, and as the route plan calls it, without positions);
 4. Q5 path: device-tier NEXMark Q5 through ``StreamExecutor.run_stream``
    at the paper's configuration (10 s window sliding by 10 ms over 10 000
    auctions, 16 384 key buckets, 65 536 events per step), held exactly
-   against an independent numpy oracle;
+   against an independent numpy oracle, with exactly one accumulate
+   launch a step;
 5. latency: Q5's per-step event-to-result latency, one step at a time;
 6. summing: Q5 summing bid prices with TF32 switched on globally, held
    against a float64 oracle (emission must stay full float32);
@@ -38,25 +44,32 @@ failure ends the run with a non-zero exit and no result line:
    4 ranks share this card over gloo.  The route plan runs 1 500 steps,
    each rank generating only its own slice of every batch, and every
    rank's result columns must equal the numpy oracle's exactly with zero
-   drops; then the reduce plan, 200 steps (its ``psum_scatter`` moves the
-   66 MB of full-width panes a rank a step, through the host on gloo);
-   then a profiled stretch of the route plan on rank 0;
-10. timing: each kernel at its path's shape beside its plain version, its
-    library yardstick and its bound (``decode_attention`` also at the
-    ``decode_32k`` shape), then a profiled stretch of each path (device
-    time by kernel, the device's idle share) — last, because the profiler
-    slows every launch after it;
+   drops and exactly ``route_pack`` and ``accumulate`` once a step; then
+   the reduce plan, 200 steps (its ``psum_scatter`` moves the 66 MB of
+   full-width panes a rank a step, through the host on gloo); then the
+   route step with the fused accumulate against the plain one, in turns,
+   and a profiled stretch of each on rank 0;
+10. timing: Q5's wall a step with the fused accumulate against the plain
+    one, in turns; each kernel at its path's shape beside its plain
+    version, its library yardstick and its bound (``decode_attention``
+    also at the ``decode_32k`` shape);
+    ptxas' registers, spills and shared memory of the new kernels and
+    route_pack's cluster; then a profiled stretch of each path (device
+    time by kernel, the device's idle share; Q5 also with the plain
+    accumulate) — last, because the profiler slows every launch after
+    it;
 11. the numbers line, the kernels line, the card line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Before each path runs, the launch counts of its kernels are set to 0 (in
-each rank's process for the 4-rank path); they are read just after.  Imports nothing of JAX and nothing of the JAX
-package ``repro``.
+each rank's process for the 4-rank path); they are read just after.
+Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -80,11 +93,10 @@ from repro_torch.kernels import _build, decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.route import (  # noqa: E402
-    route_counts, route_counts_plain, route_offsets, route_offsets_plain,
-    route_pack, route_pack_plain)
+    pack_cluster, pack_plan, route_counts, route_counts_plain, route_offsets,
+    route_offsets_plain, route_pack, route_pack_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
-    window_agg, window_agg_flat_into_, window_agg_flat_plain_into_,
-    window_agg_plain_into_)
+    accumulate_, accumulate_plain_, window_agg, window_agg_plain_into_)
 from repro_torch.launch.mesh import (  # noqa: E402
     make_data_mesh, spawn_ranks)
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
@@ -94,7 +106,9 @@ from repro_torch.models.convert import (  # noqa: E402
 from repro_torch.nexmark import NexmarkGenerator  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
+from repro_torch.streaming import window as stream_window  # noqa: E402
 from repro_torch.streaming.collectives import psum_scatter  # noqa: E402
+from repro_torch.streaming.window import window_state_init  # noqa: E402
 
 #: H100 SXM device memory rate and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -124,6 +138,8 @@ ROUTE_STEPS = 1500
 #: gloo, about 170 ms a step on one shared card): 200 steps check it
 REDUCE_STEPS = 200
 RANK_PROFILE_STEPS = 30
+#: the route step with the fused accumulate against the plain one, in turns
+ROUTE_AB_STEPS = 100
 
 # LM serving (repro/launch/serve.py) of qwen2-1.5b at full width, float32
 ARCH = "qwen2-1.5b"
@@ -227,6 +243,7 @@ def card() -> tuple[str, str]:
 def zero_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     window_agg.launches = 0
+    accumulate_.launches = 0
     decode_attention.launches = 0
     route_counts.launches = 0
     route_offsets.launches = 0
@@ -235,10 +252,24 @@ def zero_counts() -> None:
 
 def launch_counts() -> dict:
     return {"window_agg": window_agg.launches,
+            "accumulate": accumulate_.launches,
             "decode_attention": decode_attention.launches,
             "route_counts": route_counts.launches,
             "route_offsets": route_offsets.launches,
             "route_pack": route_pack.launches}
+
+
+@contextlib.contextmanager
+def plain_accumulate():
+    """Within the block, the streaming tier's accumulate runs its plain
+    version on the card (about 35 PyTorch launches) instead of the fused
+    kernel: the yardstick of phase 10's comparisons, never a path's run."""
+    fused = stream_window.accumulate_
+    stream_window.accumulate_ = accumulate_plain_
+    try:
+        yield
+    finally:
+        stream_window.accumulate_ = fused
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -265,18 +296,10 @@ def build() -> None:
 
 
 # -- phase 3 -----------------------------------------------------------------
-def accumulate_index(keys, slots, n_keys: int, ring_len: int):
-    """The flat pane index accumulate gives the kernel: int32
-    ``slot * K + key``, a negative one wrapped by ``R * K``."""
-    index = slots * n_keys + keys
-    return torch.where(index < 0, index + ring_len * n_keys, index)
-
-
 def check_window_agg(dev) -> dict:
-    """window_agg against its plain version, the op and the flat form
-    (the main path's call, at the main path's inputs): counts exactly, f32
-    sums to rtol 1e-6 (atomics add in no fixed order), bf16 values to the
-    same tolerance (both sides widen the same bf16 values to f32)."""
+    """The window_agg op against its plain version (counts exactly, f32
+    sums to rtol 1e-6: atomics add in no fixed order; bf16 values to the
+    same tolerance, as both sides widen the same values to f32)."""
     rng = np.random.RandomState(0)
     R = SPEC.ring_len
     gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
@@ -302,59 +325,173 @@ def check_window_agg(dev) -> dict:
         "bf16_values": rand(8192, 512, 16, dtype=torch.bfloat16),
     }
     max_err = 0.0
-
-    def held(name, got, want, n, launched, exact):
-        torch.cuda.synchronize()
-        if launched != (1 if n else 0):
-            raise AssertionError(f"{name}: {launched} launches")
-        if exact:
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name}: counts differ from the plain "
-                                     f"version")
-        else:
-            torch.testing.assert_close(got, want, **F32_TOL)
-        return float((got - want).abs().max()) if got.numel() else 0.0
-
-    # the op: (K, R) sums of keys and slots
     for name, (keys, slots, vals, valid, k, r) in cases.items():
         keys, slots, vals, valid = (t.to(dev) for t in (keys, slots, vals,
                                                         valid))
         before = window_agg.launches
         kr = window_agg(keys, slots, vals, valid, k, r)
-        launched = window_agg.launches - before
+        torch.cuda.synchronize()
+        if window_agg.launches - before != (1 if keys.numel() else 0):
+            raise AssertionError(f"window_agg {name}: launches off")
         want = window_agg_plain_into_(torch.zeros((r, k), device=dev), keys,
-                                      slots, vals, valid)
-        err = held(name, kr.t(), want, keys.numel(), launched,
-                   exact=name == "path_q5_counts")
+                                      slots, vals, valid).t()
+        if name == "path_q5_counts":
+            if not torch.equal(kr, want):
+                raise AssertionError(f"{name}: counts differ from the plain "
+                                     f"version")
+        else:
+            torch.testing.assert_close(kr, want, **F32_TOL)
+        err = float((kr - want).abs().max()) if kr.numel() else 0.0
         max_err = max(max_err, err)
         log(f"window_agg {name}: N={keys.numel()} K={k} R={r} "
             f"{vals.dtype} max_abs_err={err:.3g} ok")
-
-    # the flat form as accumulate calls it: the flat index into the
-    # flattened (R, K) panes, zeroed; first at the main path's inputs
-    flat_cases = {"path_q5_flat": (path_t["key"], path_slots,
-                                   path_t["value"], path_t["valid"], K, R)}
-    for name in ("out_of_range", "bf16_values"):
-        flat_cases[f"{name}_flat"] = cases[name]
-    for name, (keys, slots, vals, valid, k, r) in flat_cases.items():
-        keys, slots, vals, valid = (t.to(dev) for t in (keys, slots, vals,
-                                                        valid))
-        index = accumulate_index(keys, slots, k, r)
-        before = window_agg.launches
-        got = window_agg_flat_into_(torch.zeros(r * k, device=dev), index,
-                                    vals, valid)
-        launched = window_agg.launches - before
-        want = window_agg_flat_plain_into_(torch.zeros(r * k, device=dev),
-                                           index, vals, valid)
-        err = held(name, got, want, keys.numel(), launched,
-                   exact=name == "path_q5_flat")
-        max_err = max(max_err, err)
-        log(f"window_agg {name}: N={keys.numel()} flat R*K={r * k} "
-            f"{vals.dtype} max_abs_err={err:.3g} ok")
-
     return {"name": "window_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/window_agg.cu",
             "replaces": "src/repro/kernels/window_agg.py:54",
+            "max_abs_err": max_err}
+
+
+#: a ring of 16 slots of 512 buckets: one batch spans it more than twice
+SMALL_SPEC = VectorWindowSpec(size_ms=80, slide_ms=10, n_key_buckets=512,
+                              ring_margin=8)
+
+
+def acc_kw(spec) -> dict:
+    return dict(slide_ms=spec.slide_ms,
+                frames_per_window=spec.frames_per_window, wm_lag=spec.wm_lag,
+                frontier_from_data=spec.frontier_from_data)
+
+
+def q5_state(dev, rng, frames: int = 7) -> dict:
+    """A Q5 state after ``frames`` steps: frames 0.. in the ring with some
+    counts, the first window (end 10 ms) emitted."""
+    state = window_state_init(SPEC, device="cpu")
+    state["slot_frame"][:frames] = torch.arange(frames, dtype=torch.int32)
+    state["panes"][:frames] = torch.from_numpy(
+        rng.randint(0, 3, (frames, K)).astype(np.float32))
+    state["next_emit"].fill_(10)
+    state["watermark"].fill_(frames * SLIDE_MS - 1)
+    return {k: v.to(dev) for k, v in state.items()}
+
+
+def accumulate_cases(dev) -> dict:
+    """``{name: (spec, state, [((ts, key, value, valid), wm_hint), ...],
+    exact)}``: a Q5 step at the paper's shape (counts, and bid prices), two
+    frames sharing a slot in one batch, conflicts, late rows, keys -1, K
+    and K + 17, every wm_hint form, no data-driven frontier with wm_lag >
+    0, bf16 and f16 values, two calls back to back, and no rows."""
+    rng = np.random.RandomState(5)
+    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
+
+    def rows(ts, key, valid=None, value=None, dtype=torch.float32):
+        n = len(ts)
+        arrays = (np.asarray(ts, np.int32), np.asarray(key, np.int32),
+                  np.ones(n, np.float32) if value is None
+                  else np.asarray(value, np.float32),
+                  np.ones(n, bool) if valid is None
+                  else np.asarray(valid, bool))
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        t[2] = t[2].to(dtype)
+        return tuple(t)
+
+    def small_state(spec=SMALL_SPEC, occupied=None, next_emit=-1):
+        state = window_state_init(spec, device="cpu")
+        for slot, frame in (occupied or {}).items():
+            state["slot_frame"][slot] = frame
+        state["next_emit"].fill_(next_emit)
+        return {k: v.to(dev) for k, v in state.items()}
+
+    def mixed(n, dtype=torch.float32, counts=True):
+        # frames 0..40 over 16 slots: frames share slots within the batch,
+        # half the ring's occupants conflict, frames below 7 are late, keys
+        # run past both ends of [0, K) (-1, K and K + 17 among them)
+        r, k = SMALL_SPEC.ring_len, SMALL_SPEC.n_key_buckets
+        occupied = {i: i + r for i in range(r) if rng.rand() < 0.5}
+        key = rng.randint(-20, k + 40, n)
+        key[:3] = [-1, k, k + 17]
+        return small_state(occupied=occupied, next_emit=150), rows(
+            rng.randint(0, 410, n), key, rng.rand(n) < 0.9,
+            None if counts else rng.randn(n), dtype)
+
+    q5 = q5_batch(gen, 7)
+    q5_prices = q5_batch(gen, 7, price=True)
+    mixed_state, mixed_rows = mixed(50_000)
+    k = SMALL_SPEC.n_key_buckets
+    lag_spec = dataclasses.replace(SMALL_SPEC, wm_lag=25,
+                                   frontier_from_data=False)
+    cases = {
+        "q5_step": (SPEC, q5_state(dev, rng), [(rows(**q5), None)], True),
+        "q5_step_prices": (SPEC, q5_state(dev, rng),
+                           [(rows(**q5_prices), None)], False),
+        "two_frames_one_slot": (SMALL_SPEC, small_state(), [(rows(
+            [25, 185, 27, 183, 21], [1, 2, 1, 4, 9]), None)], True),
+        "conflicts": (SMALL_SPEC, small_state(occupied={2: 2, 5: 21},
+                                              next_emit=30), [(rows(
+            [25, 185, 55, 211, 22, 189], [1, 2, 3, 4, 5, 6]), None)], True),
+        "late_rows": (SMALL_SPEC, small_state(next_emit=150), [(rows(
+            [35, 69, 70, 71, 99, 12], [0, 1, 2, 3, 4, 5],
+            [1, 1, 1, 1, 1, 0]), None)], True),
+        "keys_out_of_range": (SMALL_SPEC, small_state(), [(rows(
+            [5, 5, 5, 75, 75, 155, 155], [-1, k, k + 17, -1, k, k + 17,
+                                          -3 * k]), None)], True),
+        "mixed_counts": (SMALL_SPEC, mixed_state, [(mixed_rows, None)],
+                         True),
+        "hint_int": (SMALL_SPEC, small_state(), [(rows([25, 31], [1, 2]),
+                                                  1234)], True),
+        "hint_tensor": (SMALL_SPEC, small_state(), [(rows([25, 31], [1, 2]),
+                        torch.tensor(1234, dtype=torch.int32, device=dev))],
+                        True),
+        "hint_below_frontier": (SMALL_SPEC, small_state(), [(rows(
+            [25, 310], [1, 2]), 7)], True),
+        "no_frontier_wm_lag": (lag_spec, small_state(lag_spec), [(rows(
+            [25, 310, 47], [1, 2, 3]), 200)], True),
+        "two_calls": (SMALL_SPEC, mixed(5_000)[0], [
+            (mixed(5_000)[1], None), (mixed(5_000)[1], 33)], True),
+        "no_rows": (lag_spec, small_state(lag_spec), [(rows([], []), 90)],
+                    True),
+    }
+    for dtype in (torch.bfloat16, torch.float16):
+        state, r = mixed(20_000, dtype, counts=False)
+        cases[str(dtype)[6:]] = (SMALL_SPEC, state, [(r, None)], False)
+    return cases
+
+
+def check_accumulate(dev) -> dict:
+    """The fused accumulate against accumulate_plain_ on the card from the
+    same state: slot_frame, the watermark, next_emit and the counters
+    exactly, the panes exactly for counts and to rtol 1e-6 for sums; one
+    launch a call, none for no rows.  Returns its kernels-line entry with
+    the largest pane error."""
+    max_err = 0.0
+    for name, (spec, state, calls, exact) in accumulate_cases(dev).items():
+        got = {k: v.clone() for k, v in state.items()}
+        want = {k: v.clone() for k, v in state.items()}
+        for (ts, key, value, valid), hint in calls:
+            before = accumulate_.launches
+            accumulate_(got, ts, key, value, valid, wm_hint=hint,
+                        **acc_kw(spec))
+            torch.cuda.synchronize()
+            if accumulate_.launches - before != (1 if ts.numel() else 0):
+                raise AssertionError(f"accumulate {name}: launches off")
+            accumulate_plain_(want, ts, key, value, valid, wm_hint=hint,
+                              **acc_kw(spec))
+            for k in want:
+                if k == "panes" and not exact:
+                    torch.testing.assert_close(got[k], want[k], **F32_TOL)
+                elif not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"accumulate {name}: {k} differs "
+                                         f"from the plain version")
+        err = float((got["panes"] - want["panes"]).abs().max())
+        max_err = max(max_err, err)
+        drops = (int(got["dropped_late"]), int(got["dropped_conflict"]))
+        log(f"accumulate {name}: N={sum(c[0][0].numel() for c in calls)} "
+            f"R={spec.ring_len} K={spec.n_key_buckets} "
+            f"{calls[0][0][2].dtype} calls={len(calls)} drops={drops} "
+            f"watermark={int(got['watermark'])} max_abs_err={err:.3g} ok")
+    return {"name": "accumulate", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/window_agg.cu",
+            "replaces": "src/repro/kernels/window_agg.py:54",
+            "replaces_jnp": "src/repro/streaming/window.py:116",
             "max_abs_err": max_err}
 
 
@@ -548,9 +685,11 @@ def check_route(dev) -> list:
     """route_counts and route_offsets against their plain versions at the
     route plan's shape (a rank's 16 384 events over 4 destinations), the
     reference test shapes, a key-bucket histogram (a whole Q5 batch over
-    16 384 buckets) and edges; route_pack at the path's inputs, under a
-    skew that overflows C, with keys outside [0, K), ragged and empty.
-    All integers: held exactly."""
+    16 384 buckets) and edges; route_pack (one cluster launch, nothing
+    else) at the path's inputs, N of 0, 1, 1 023, 1 024, 1 025, 16 384 and
+    2^20, 1 to 32 destinations, overflow into the last destination, keys
+    outside [0, K), C = 1, and over memory poisoned first.  All integers:
+    held exactly."""
     rng = np.random.RandomState(4)
     gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
     k_loc, cap = K // RANKS, max(8, int(B // RANKS / RANKS * 2.0))
@@ -613,13 +752,24 @@ def check_route(dev) -> list:
         "ragged": events(1025, 3, 5, 300),
         "most_destinations": events(5000, 32, 3, 20, oob=True),
         "empty": events(0, 4, 8, 8),
+        "one_row": events(1, 4, 8, 8),
+        "tile_less_one": events(1023, 2, 64, 600),
+        "one_tile": events(1024, 1, 64, 2000, oob=True),
+        "tile_and_one": events(1025, 2, 64, 600, skew=1),
+        "path_rows_8_dest": events(16384, 8, 512, 4096, oob=True),
+        "rows_2_20": events(2**20, 4, 4096, 2**16, skew=3),
+        "c_1": events(3000, 4, 8, 1, oob=True),
+        "c_1_most_destinations": events(3000, 32, 2, 1, skew=31),
     }
     for name, args in pack_cases.items():
-        before = route_pack.launches
+        before = (route_counts.launches, route_offsets.launches,
+                  route_pack.launches)
         got = route_pack(*args)
         torch.cuda.synchronize()
         n = args[0].numel()
-        if route_pack.launches - before != (1 if n else 0):
+        if (route_counts.launches, route_offsets.launches,
+                route_pack.launches) != (before[0], before[1],
+                                         before[2] + (1 if n else 0)):
             raise AssertionError(f"route_pack {name}: launches off")
         want = route_pack_plain(*args)
         if not (torch.equal(got.send, want.send)
@@ -627,11 +777,34 @@ def check_route(dev) -> list:
                 and int(got.n_overflow) == int(want.n_overflow)):
             raise AssertionError(f"route_pack {name}: differs from the "
                                  f"plain version")
+        # as the route plan calls it: no positions stored
+        bare = route_pack(*args, with_pos=False)
+        if not (bare.pos is None and torch.equal(bare.send, want.send)
+                and int(bare.n_overflow) == int(want.n_overflow)):
+            raise AssertionError(f"route_pack {name} without positions: "
+                                 f"differs from the plain version")
         overflow = int(got.n_overflow)
-        if name == "skew_overflow" and overflow == 0:
-            raise AssertionError("skew_overflow: no event overflowed C")
+        if name in ("skew_overflow", "rows_2_20", "c_1") and overflow == 0:
+            raise AssertionError(f"{name}: no event overflowed C")
         log(f"route_pack {name}: N={n} n_dest={args[4]} k_loc={args[5]} "
             f"C={args[6]} overflow={overflow} max_abs_err=0 ok")
+    # send, pos and n_overflow come from torch.empty: over memory that
+    # held a non-zero pattern, every cell must still come out right
+    args = pack_cases["skew_overflow"]
+    want = route_pack_plain(*args)
+    for _ in range(3):
+        torch.full((RANKS, 4, 2048), -7, dtype=torch.int32, device=dev)
+        torch.full((B // RANKS,), 123, dtype=torch.int32, device=dev)
+        torch.full((), 99, dtype=torch.int32, device=dev)
+        got = route_pack(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.send, want.send)
+                and torch.equal(got.pos, want.pos)
+                and int(got.n_overflow) == int(want.n_overflow)):
+            raise AssertionError("route_pack over poisoned memory differs "
+                                 "from the plain version")
+    log("route_pack over memory filled with -7, 123 and 99 first: equal to "
+        "the plain version, every cell written")
     src = "src/repro_torch/kernels/csrc/route.cu"
     return [{"name": "route_counts", "route": "cuda", "source": src,
              "replaces": "src/repro/kernels/route.py:42",
@@ -718,8 +891,8 @@ def main_path(dev, n_steps: int) -> dict:
     state, results = ex.run_stream(feed, n_steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = window_agg.launches
-    others = {k: v for k, v in launch_counts().items() if k != "window_agg"}
+    launches = accumulate_.launches
+    others = {k: v for k, v in launch_counts().items() if k != "accumulate"}
     if any(others.values()):
         raise AssertionError(f"other kernels launched on the Q5 path: "
                              f"{others}")
@@ -730,8 +903,8 @@ def main_path(dev, n_steps: int) -> dict:
     drops = (int(state["dropped_late"]), int(state["dropped_conflict"]))
     if drops != (0, 0):
         raise AssertionError(f"dropped (late, conflict) = {drops}")
-    if launches < n_steps:
-        raise AssertionError(f"window_agg launched {launches} times in "
+    if launches != n_steps:                 # one accumulate launch a step
+        raise AssertionError(f"accumulate launched {launches} times in "
                              f"{n_steps} steps")
     bids = int(hist.sum())
     out = {
@@ -744,7 +917,7 @@ def main_path(dev, n_steps: int) -> dict:
         "emit_rounds_per_step": ex.emit_rounds / n_steps,
         "host_syncs_per_step": ex.host_syncs / n_steps,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "window_agg_launches": launches,
+        "launches": launch_counts(),
     }
     log(f"main path: {n_windows} windows ({full} full) equal the numpy "
         f"oracle exactly; drops 0; {json.dumps(out)}")
@@ -1042,12 +1215,14 @@ def rank_plan(ex, mesh, dev, feed, hist, n_steps: int) -> dict:
     if drops != (0, 0):
         raise AssertionError(f"{cfg.exchange}: dropped (late, conflict) = "
                              f"{drops}")
-    routed = ("route_counts", "route_offsets", "route_pack")
-    want = {"window_agg": n_steps, "decode_attention": 0}
-    want.update({k: n_steps if cfg.exchange == "route" else 0
-                 for k in routed})
+    # exactly: one accumulate a step, one route_pack a route step (its
+    # histogram is route_counts' device function inside it), and no
+    # standalone route_counts or route_offsets
+    want = {"window_agg": 0, "accumulate": n_steps, "decode_attention": 0,
+            "route_counts": 0, "route_offsets": 0,
+            "route_pack": n_steps if cfg.exchange == "route" else 0}
     for k, n in want.items():
-        if (launches[k] < n) if n else launches[k]:
+        if launches[k] != n:
             raise AssertionError(f"{cfg.exchange}: {k} launched "
                                  f"{launches[k]} times in {n_steps} steps")
     return {"steps": n_steps, "windows_checked": n_windows,
@@ -1128,8 +1303,27 @@ def q5_rank(rank: int, world: int, dev, route_steps: int, reduce_steps: int,
         cfg = StreamJobConfig(window=SPEC, batch_size=B, exchange=exchange)
         ex = StreamExecutor(cfg, mesh=mesh, device=dev)
         out[exchange] = rank_plan(ex, mesh, dev, feed, hist, n_steps)
+    # the route step with the fused accumulate against the plain one, in
+    # turns and unprofiled, then each profiled (the profiler slows every
+    # launch after it starts)
+    cfg = StreamJobConfig(window=SPEC, batch_size=B, exchange="route")
+    walls = {"fused": [], "plain": []}
+    for which in ("plain", "fused", "fused", "plain"):
+        with plain_accumulate() if which == "plain" else \
+                contextlib.nullcontext():
+            dist.barrier()
+            t0 = time.perf_counter()
+            StreamExecutor(cfg, mesh=mesh, device=dev).run_stream(
+                feed, ROUTE_AB_STEPS)
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t0)
+                                / ROUTE_AB_STEPS * 1e3)
+    out["route_ab_wall_ms_per_step"] = walls
     out["profile"] = rank_profile(rank, mesh, dev, feed, profile_steps,
-                                  out["route"]["wall_ms_per_step"])
+                                  min(walls["fused"]))
+    with plain_accumulate():
+        out["profile_plain_accumulate"] = rank_profile(
+            rank, mesh, dev, feed, profile_steps, min(walls["plain"]))
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -1180,10 +1374,23 @@ def q5_ranks() -> dict:
         log(f"Q5 across ranks, {plan} plan: every rank's columns equal the "
             f"numpy oracle exactly, drops 0; {json.dumps(res[plan])}")
     res["profile"] = per_rank[0]["profile"]
+    res["profile_plain_accumulate"] = per_rank[0]["profile_plain_accumulate"]
+    res["route_ab_wall_ms_per_step"] = [r["route_ab_wall_ms_per_step"]
+                                        for r in per_rank]
+    plain = res["profile_plain_accumulate"]
+    log(f"route step on rank 0 with the plain accumulate: wall "
+        f"{plain['wall_ms_per_step']:.4f} ms, device "
+        f"{plain['device_ms_per_step']:.4f} ms, idle share "
+        f"{plain['device_idle_share']:.4f}, "
+        f"{plain['device_launches_per_step']:.2f} device launches a step; "
+        f"walls a step in turns (plain, fused, fused, plain) on every rank: "
+        f"{json.dumps(res['route_ab_wall_ms_per_step'])}")
     prof = res["profile"]
     log(f"route plan per step on rank 0: wall {prof['wall_ms_per_step']:.4f}"
         f" ms, device {prof['device_ms_per_step']:.4f} ms, idle share "
-        f"{prof['device_idle_share']:.4f}; top device time:")
+        f"{prof['device_idle_share']:.4f}, "
+        f"{prof['device_launches_per_step']:.2f} device launches a step; "
+        f"top device time:")
     for name, ms, c in prof["top_device"]:
         log(f"  {ms:.5f} ms  x{c:.2f}  {name}")
     log("  top host self time:")
@@ -1225,9 +1432,9 @@ def route_timing_cases(dev):
             "plain": lambda: route_offsets_plain(pids, valid, p)},
             n * 5 + 2 * p * 4),
         "route_pack": ({
-            "kernel": lambda: route_pack(*pack_args),
+            "kernel": lambda: route_pack(*pack_args, with_pos=False),
             "plain": lambda: route_pack_plain(*pack_args)},
-            n * 13 + RANKS * 4 * cap * 4 + n * 4 + 4),
+            n * 13 + RANKS * 4 * cap * 4 + 4),
     }
 
 
@@ -1263,62 +1470,164 @@ def profile_route(dev, entries: list) -> None:
         log(f"{name} device time (profiler) ms {json.dumps(dev_only)}")
 
 
-def time_window_agg(dev) -> dict:
-    """window_agg at the main path's shape, as accumulate calls it (one
-    step's Q5 batch added at the flat index into the flattened (R, K)
-    panes) beside its plain version, its library yardstick and its memory
-    bound.  Runs after the main path: the profiler, once started, slows
-    every later launch."""
+def time_window_agg(dev) -> tuple[dict, dict]:
+    """The window_agg op (no path runs it; phase 3 holds it) at the main
+    path's inputs: one Q5 step's keys and slots into a fresh (16384, 1008)
+    output, beside its plain version and its library yardstick (one
+    index_add_ into a fresh zeroed vector, given the int64 flat index and
+    masked values ready-made), by CUDA events over 200 calls in turns.
+    Its bound: keys, slots, values and valid read once and the (K, R)
+    output written once, at 3.35 TB/s.  Returns the timings and the three
+    calls, for device time alone (profiler) later."""
     R = SPEC.ring_len
     b = q5_batch(NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS), 7)
     keys, vals, valid = (torch.from_numpy(b[k]).to(dev)
                          for k in ("key", "value", "valid"))
     slots = ((torch.from_numpy(b["ts"]).to(dev) // SLIDE_MS) % R).to(
         torch.int32)
-    index = accumulate_index(keys, slots, K, R)
-    flat = torch.zeros(R * K, device=dev)
-    # library yardstick: one index_add_ on the flattened panes, given the
-    # int64 index and masked values it needs ready-made
-    flat_idx = torch.where(valid, index.long(), 0)
+    flat_idx = torch.where(valid, keys.long() * R + slots.long(), 0)
     flat_val = torch.where(valid, vals, 0.0)
-    fns = {"kernel": lambda: window_agg_flat_into_(flat, index, vals, valid),
-           "plain": lambda: window_agg_flat_plain_into_(flat, index, vals,
-                                                        valid),
-           "library": lambda: flat.index_add_(0, flat_idx, flat_val)}
-    # CUDA events over 200 back-to-back calls, in turns
+    fns = {"kernel": lambda: window_agg(keys, slots, vals, valid, K, R),
+           "plain": lambda: window_agg_plain_into_(
+               torch.zeros((R, K), device=dev), keys, slots, vals,
+               valid).t(),
+           "library": lambda: torch.zeros(K * R, device=dev).index_add_(
+               0, flat_idx, flat_val)}
+    if not (torch.equal(fns["kernel"](), fns["plain"]())
+            and torch.equal(fns["kernel"]().flatten(), fns["library"]())):
+        raise AssertionError("window_agg timing: the three calls disagree")
     times = {}
     for label in ("plain", "kernel", "library", "kernel", "plain"):
         times.setdefault(label, []).append(cuda_ms(fns[label], iters=200))
-    dev_only = {label: device_ms(fn) for label, fn in fns.items()}
-    # bytes this batch needs: each input (index, value, valid) read once,
-    # and one read and one write of every pane cell the contributing rows
-    # touch
-    cells = torch.unique(flat_idx[valid]).numel()
     n = keys.numel()
-    bytes_moved = n * (4 + vals.element_size() + 1) + 8 * cells
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    log(f"window_agg timing at N={n} K={K} R={R} ({int(valid.sum())} bids, "
-        f"{cells} cells): events ms {json.dumps(times)}; device time alone "
-        f"(profiler) ms {json.dumps(dev_only)}; bound {bound_ms:.6f} ms "
-        f"({bytes_moved} B at 3.35 TB/s)")
-    return {"ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
-            "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": min(times["library"]),
-            "device_ms": dev_only["kernel"],
-            "plain_device_ms": dev_only["plain"],
-            "library_device_ms": dev_only["library"]}
+    bytes_moved = n * (4 + 4 + vals.element_size() + 1) + K * R * 4
+    res = {"ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+           "library_ms": min(times["library"]),
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes": bytes_moved, "events_ms": times}
+    log(f"window_agg op timing at N={n} K={K} R={R}: {json.dumps(res)}")
+    return res, fns
 
 
-def profile_main_path(dev, wall_ms_per_step: float, n_steps: int = 50):
-    """Where a main-path step's time goes: device time by kernel over a
-    profiled stretch, against the unprofiled run's wall time per step."""
+def profile_window_agg(fns: dict, entry: dict) -> None:
+    """Device time alone (profiler) of the op's three timed calls."""
+    dev_only = {label: device_ms(fn) for label, fn in fns.items()}
+    entry.update({"device_ms": dev_only["kernel"],
+                  "plain_device_ms": dev_only["plain"],
+                  "library_device_ms": dev_only["library"]})
+    log(f"window_agg op device time (profiler) ms {json.dumps(dev_only)}")
+
+
+def time_accumulate(dev) -> dict:
+    """The fused accumulate at a Q5 step (the main path's call: one step's
+    batch into the paper's (1008, 16384) panes, frames 0..6 in the ring)
+    beside the plain version, by CUDA events
+    over 200 back-to-back calls in turns, then device time alone
+    (profiler); and its bound: ts, key, value and valid read once,
+    slot_frame read once, every pane cell the batch touches read and
+    written once, at 3.35 TB/s.  No single PyTorch call computes
+    accumulate, so there is no library yardstick."""
+    rng = np.random.RandomState(11)
+    b = q5_batch(NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS), 7)
+    ts, key, value, valid = (torch.from_numpy(b[k]).to(dev)
+                             for k in ("ts", "key", "value", "valid"))
+    base = q5_state(dev, rng)
+    states = {w: {k: v.clone() for k, v in base.items()}
+              for w in ("kernel", "plain")}
+    kw = acc_kw(SPEC)
+    fns = {"kernel": lambda: accumulate_(states["kernel"], ts, key, value,
+                                         valid, **kw),
+           "plain": lambda: accumulate_plain_(states["plain"], ts, key,
+                                              value, valid, **kw)}
+    times = {}
+    for label in ("plain", "kernel", "kernel", "plain"):
+        times.setdefault(label, []).append(cuda_ms(fns[label], iters=200))
+    dev_only = {label: device_ms(fn) for label, fn in fns.items()}
+    # every call adds the same batch: the two states must agree
+    for k in base:
+        if k != "panes" and not torch.equal(states["kernel"][k],
+                                            states["plain"][k]):
+            raise AssertionError(f"timed accumulate runs disagree on {k}")
+    cells = int(torch.unique(key[valid]).numel())
+    n = key.numel()
+    bytes_moved = (n * (4 + 4 + value.element_size() + 1)
+                   + SPEC.ring_len * 4 + 8 * cells)
+    res = {"ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes": bytes_moved, "library_ms": None,
+           "device_ms": dev_only["kernel"],
+           "plain_device_ms": dev_only["plain"],
+           "events_ms": times}
+    log(f"accumulate timing at N={n} K={K} R={SPEC.ring_len} "
+        f"({int(valid.sum())} bids, {cells} cells): {json.dumps(res)}")
+    return res
+
+
+def q5_wall_ab(dev, n_steps: int = 300) -> dict:
+    """Q5 wall ms a step with the fused accumulate and with the plain one
+    on the card, in turns (plain, fused, fused, plain), before any
+    profiler runs in this process."""
     gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
     batches, _ = pinned_batches(gen, n_steps)
     cfg = StreamJobConfig(window=SPEC, batch_size=B)
-    kernels = profiled(lambda: StreamExecutor(cfg).run_stream(
-        lambda s, size: batches[s // size], n_steps), iters=1)
+
+    def feed(start, size):
+        return batches[start // size]
+
+    walls = {"fused": [], "plain": []}
+    for which in ("plain", "fused", "fused", "plain"):
+        with plain_accumulate() if which == "plain" else \
+                contextlib.nullcontext():
+            StreamExecutor(cfg).run_stream(feed, 32)            # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            StreamExecutor(cfg).run_stream(feed, n_steps)
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t0) / n_steps * 1e3)
+    res = {"steps": n_steps, "wall_ms_per_step": walls,
+           "fused_ms": min(walls["fused"]), "plain_ms": min(walls["plain"])}
+    log(f"Q5 wall a step, fused accumulate against the plain one (in "
+        f"turns): {json.dumps(res)}")
+    return res
+
+
+def new_kernel_resources(dev) -> dict:
+    """Registers, spills and shared memory (ptxas) of the fused accumulate
+    and of route_pack, and route_pack's cluster at the path's plan: blocks,
+    threads, claims a block and clusters the card holds at once."""
+    plan = pack_plan(B // RANKS, RANKS, max(8, int(B // RANKS / RANKS * 2.0)))
+    blocks, threads, clusters = pack_cluster(plan.cells_per_block,
+                                             dev.index or 0)
+    res = {"accumulate_ptxas": ptxas_report("window_agg",
+                                            "accumulate_kernel"),
+           "route_pack_ptxas": ptxas_report("route", "route_pack_kernel"),
+           "route_pack_cluster": {
+               "blocks": blocks, "threads_a_block": threads,
+               "rows_per_block": plan.rows_per_block,
+               "cells_per_block": plan.cells_per_block,
+               "dynamic_smem_bytes_a_block": plan.smem_bytes,
+               "cluster_smem_bytes": plan.smem_bytes * blocks,
+               "clusters_the_card_holds": clusters}}
+    if (blocks, threads) != (plan.blocks, 1024) or clusters < 1:
+        raise AssertionError(f"route_pack's cluster: {res}")
+    log(f"new kernels' resources: {json.dumps(res)}")
+    return res
+
+
+def profile_main_path(dev, wall_ms_per_step: float, n_steps: int = 50,
+                      plain: bool = False):
+    """Where a main-path step's time goes: device time by kernel over a
+    profiled stretch, against an unprofiled run's wall time per step;
+    ``plain``: with the plain accumulate on the card."""
+    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
+    batches, _ = pinned_batches(gen, n_steps)
+    cfg = StreamJobConfig(window=SPEC, batch_size=B)
+    with plain_accumulate() if plain else contextlib.nullcontext():
+        kernels = profiled(lambda: StreamExecutor(cfg).run_stream(
+            lambda s, size: batches[s // size], n_steps), iters=1)
     busy = sum(ms for ms, _ in kernels.values()) / n_steps
-    res = {"wall_ms_per_step": wall_ms_per_step,
+    res = {"accumulate": "plain" if plain else "fused",
+           "wall_ms_per_step": wall_ms_per_step,
            "device_ms_per_step": busy,
            "device_idle_share": 1 - busy / wall_ms_per_step,
            "device_launches_per_step": sum(
@@ -1328,6 +1637,8 @@ def profile_main_path(dev, wall_ms_per_step: float, n_steps: int = 50):
     for name, (ms, launches) in top:
         log(f"  {ms / n_steps:.5f} ms  x{launches / n_steps:.2f}  "
             f"{name[:100]}")
+    res["top"] = [[name[:100], ms / n_steps, c / n_steps]
+                  for name, (ms, c) in top]
     return res
 
 
@@ -1554,10 +1865,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     window = check_window_agg(dev)
+    acc = check_accumulate(dev)
     attn = check_decode_attention(dev)
     routes = check_route(dev)
     path = main_path(dev, MAIN_STEPS)
-    window["launches"] = path["window_agg_launches"]
+    window["launches"] = path["launches"]["window_agg"]
+    acc["launches"] = path["launches"]["accumulate"]
     lat = latency(dev, LATENCY_STEPS)
     summ = summing(dev, SUMMING_STEPS)
     cfg = get_config(ARCH)
@@ -1571,21 +1884,33 @@ def main() -> int:
     ranks = q5_ranks()
     for entry in routes:
         entry["launches"] = ranks["route"]["launches"][entry["name"]]
+    # phase 10: event timings first, then the profiler
+    ab = q5_wall_ab(dev)
     attn.update(time_decode_attention(dev))
     time_route(dev, routes)
-    window.update(time_window_agg(dev))
+    op_timing, op_calls = time_window_agg(dev)
+    window.update(op_timing)
+    acc.update(time_accumulate(dev))
+    resources = new_kernel_resources(dev)
+    acc["resources"] = resources["accumulate_ptxas"]
+    routes[2]["resources"] = {k: resources[k] for k in (
+        "route_pack_ptxas", "route_pack_cluster")}
     profile_route(dev, routes)
+    profile_window_agg(op_calls, window)
     profile_decode_attention(dev, attn)
-    prof = profile_main_path(dev, path["wall_ms_per_step"])
+    prof = profile_main_path(dev, ab["fused_ms"])
+    prof_plain = profile_main_path(dev, ab["plain_ms"], plain=True)
     serve_prof = profile_serve(dev, cfg, params, step_ms)
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s")
     print(json.dumps({"main_path": path, "latency": lat, "summing": summ,
-                      "profile": prof, "serve": serve, "serve_tf32": tf32,
+                      "q5_wall_ab": ab, "profile": prof,
+                      "profile_plain_accumulate": prof_plain,
+                      "serve": serve, "serve_tf32": tf32,
                       "serve_card_vs_cpu": vs_cpu,
                       "serve_profile": serve_prof, "q5_ranks": ranks,
                       "total_s": total}))
-    print(json.dumps({"kernels": [window, attn, *routes]}))
+    print(json.dumps({"kernels": [window, acc, attn, *routes]}))
     print(smi)
     # the run uses one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {

@@ -22,36 +22,80 @@ Dispatch is on the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the hand-written Hopper kernels
 (``csrc/route.cu``) or raise.  There is no fallback from one to the other.
 Each wrapper counts the launches of its kernel on ``.launches`` (never
-plain runs): ``route_pack`` launches the ``route_counts`` kernel for its
-per-tile histograms and the ``route_offsets`` scan over them before its
-own rank-and-write kernels, and counts each on its own wrapper.
+plain runs).  ``route_pack`` is one launch: a cluster of 8 blocks holds
+the whole counting sort in shared memory (histograms by
+``route_counts``' device function, offsets through distributed shared
+memory, claims on the send cells), planned by :func:`pack_plan`; it
+launches neither ``route_counts`` nor ``route_offsets``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
 _INT_MIN = -(2**31)
-_TILE = 1024                  # rows per block of the tile kernels
-#: the rank kernel ranks rows by warp votes: one ballot per destination
+_TILE = 1024                  # rows a tile of route_pack's blocks
+#: route_pack ranks rows by warp votes: one ballot per destination
 MAX_DEST = 32
+#: route_pack's blocks: one cluster of the portable maximum
+CLUSTER_BLOCKS = 8
+#: send cells (n_dest x C) whose claims a block of the cluster holds in its
+#: shared memory (192 KB of int32); the cluster holds 8 times as many
+MAX_CELLS_PER_BLOCK = 49152
+#: route_pack's claim holds row << 1, so rows stay below 2^30
+MAX_PACK_ROWS = 2**30 - 1
+_VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the plain counts build one-hot chunks of at most this many entries
 _ONEHOT_CHUNK = 2**24
+
+
+class PackPlan(NamedTuple):
+    """How route_pack's cluster splits the work: block ``b`` takes rows
+    ``[b * rows_per_block, (b + 1) * rows_per_block)`` (whole 1024-row
+    tiles) and the claims of cells ``[b * cells_per_block, (b + 1) *
+    cells_per_block)`` of the ``n_dest * C`` send cells, in
+    ``smem_bytes`` of dynamic shared memory."""
+    blocks: int
+    rows_per_block: int
+    cells_per_block: int
+    smem_bytes: int
+
+
+def pack_plan(n: int, n_dest: int, cap: int) -> PackPlan:
+    """The plan route_pack's kernel runs for ``n`` rows (the kernel's CPU
+    mirror).  Raises ``ValueError`` where the claims of ``n_dest * cap``
+    cells exceed the cluster's shared memory, or the rows exceed what a
+    claim can name."""
+    cells = n_dest * cap
+    if cells > CLUSTER_BLOCKS * MAX_CELLS_PER_BLOCK:
+        raise ValueError(
+            f"route_pack holds the claims of n_dest x C = {n_dest} x {cap} "
+            f"= {cells} send cells in one cluster's shared memory: at most "
+            f"{CLUSTER_BLOCKS} x {MAX_CELLS_PER_BLOCK} = "
+            f"{CLUSTER_BLOCKS * MAX_CELLS_PER_BLOCK} cells")
+    if n > MAX_PACK_ROWS:
+        raise ValueError(f"route_pack takes at most {MAX_PACK_ROWS} rows, "
+                         f"got {n}")
+    tiles = -(-n // _TILE)
+    rows = -(-tiles // CLUSTER_BLOCKS) * _TILE
+    per_block = -(-cells // CLUSTER_BLOCKS)
+    return PackPlan(CLUSTER_BLOCKS, rows, per_block, per_block * 4)
 
 
 class RoutePack(NamedTuple):
     """``send`` (n_dest, 4, C) int32 planes ts, key, value bits, ok;
     ``pos`` (N,) int32, each event's position (``INT_MIN`` where the
-    reference's column lookup reads its fill); ``n_overflow`` () int32,
-    valid events beyond their destination's capacity."""
+    reference's column lookup reads its fill), or None where the caller
+    did not ask for it; ``n_overflow`` () int32, valid events beyond their
+    destination's capacity."""
     send: torch.Tensor
-    pos: torch.Tensor
+    pos: Optional[torch.Tensor]
     n_overflow: torch.Tensor
 
 
@@ -158,11 +202,12 @@ def _lib() -> ctypes.CDLL:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.route_counts_launch.argtypes = [vp, vp, ll, i, vp, i, vp]
     lib.route_scan_launch.argtypes = [vp, vp, ll, i, vp]
-    lib.route_tile_hist_launch.argtypes = [vp, vp, ll, i, i, vp, i, vp]
-    lib.route_pack_launch.argtypes = [vp, vp, vp, vp, ll, i, i, i, vp, vp,
-                                      vp, vp, vp, vp, i, vp]
+    lib.route_pack_launch.argtypes = [vp, vp, vp, i, vp, ll, i, i, i, ll, i,
+                                      vp, vp, vp, i, vp]
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.route_pack_cluster.argtypes = [i, ip, ip, ip, i]
     for fn in (lib.route_counts_launch, lib.route_scan_launch,
-               lib.route_tile_hist_launch, lib.route_pack_launch):
+               lib.route_pack_launch, lib.route_pack_cluster):
         fn.restype = ctypes.c_int
     lib.route_error_string.argtypes = [ctypes.c_int]
     lib.route_error_string.restype = ctypes.c_char_p
@@ -178,7 +223,7 @@ def _raise_on(err: int, what: str) -> None:
 
 def _stream(t: torch.Tensor) -> Tuple[int, int]:
     dev = t.device.index
-    return dev, torch.cuda.current_stream(dev).cuda_stream
+    return dev, torch._C._cuda_getCurrentRawStream(dev)
 
 
 def _require_contiguous(named) -> None:
@@ -238,12 +283,15 @@ def route_offsets(pids, valid, n_partitions: int
 
 
 def route_pack(ts, key, value, valid, n_dest: int, k_loc: int,
-               cap: int) -> RoutePack:
+               cap: int, *, with_pos: bool = True) -> RoutePack:
     """The route plan's send layout for one shard's slice of a batch: ts,
     key (int32), value (float; packed as float32 bits), valid (bool), all
     (N,); ``n_dest`` destinations (1 to 32) owning ``k_loc`` key buckets
     each, ``cap`` cells per destination.  See :func:`route_pack_plain` for
-    the exact semantics; ``N == 0`` launches nothing."""
+    the exact semantics.  On a card: one launch (``N == 0`` launches
+    nothing); ``ValueError`` where :func:`pack_plan` cannot hold the
+    cells.  ``with_pos=False`` returns ``pos=None`` and spares the kernel
+    the store (the route plan reads only ``send`` and ``n_overflow``)."""
     n = _check_rows((("key", key, torch.int32), ("ts", ts, torch.int32),
                      ("value", value, None), ("valid", valid, torch.bool)))
     if not 1 <= n_dest <= MAX_DEST or k_loc < 1 or cap < 1:
@@ -255,36 +303,49 @@ def route_pack(ts, key, value, valid, n_dest: int, k_loc: int,
     if not value.is_floating_point():
         raise TypeError(f"value must be floating point, got {value.dtype}")
     if not _on_cuda(key, "route_pack"):
-        return route_pack_plain(ts, key, value, valid, n_dest, k_loc, cap)
-    bits = value.to(torch.float32).contiguous().view(torch.int32)
-    _require_contiguous((("ts", ts), ("key", key), ("valid", valid)))
+        pack = route_pack_plain(ts, key, value, valid, n_dest, k_loc, cap)
+        return pack if with_pos else pack._replace(pos=None)
+    if value.dtype not in _VALUE_CODES:
+        raise TypeError(f"the kernel reads float32, bfloat16 or float16 "
+                        f"values, got {value.dtype}")
+    _require_contiguous((("ts", ts), ("key", key), ("value", value),
+                         ("valid", valid)))
+    plan = pack_plan(n, n_dest, cap)
     dev = key.device
-    send = torch.zeros((n_dest, 4, cap), dtype=torch.int32, device=dev)
-    pos = torch.empty(n, dtype=torch.int32, device=dev)
-    n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if n == 0:
-        return RoutePack(send, pos, n_overflow)
+        return RoutePack(torch.zeros((n_dest, 4, cap), dtype=torch.int32,
+                                     device=dev),
+                         torch.empty(0, dtype=torch.int32, device=dev)
+                         if with_pos else None,
+                         torch.zeros((), dtype=torch.int32, device=dev))
+    # one allocation for the outputs, every cell of which the kernel
+    # writes: send, then n_overflow, then pos if asked for
+    cells = n_dest * 4 * cap
+    out = torch.empty(cells + 1 + (n if with_pos else 0), dtype=torch.int32,
+                      device=dev)
+    send = out[:cells].view(n_dest, 4, cap)
+    n_overflow = out[cells]
+    pos = out[cells + 1:] if with_pos else None
     index, stream = _stream(key)
-    lib = _lib()
-    # 1. per-tile histograms of destinations: the route_counts kernel
-    tiles = -(-n // _TILE)
-    scan = torch.empty(n_dest * tiles, dtype=torch.int32, device=dev)
-    _raise_on(lib.route_tile_hist_launch(
-        key.data_ptr(), valid.data_ptr(), n, n_dest, k_loc, scan.data_ptr(),
-        index, stream), "route_counts")
-    route_counts.launches += 1
-    # 2. their exclusive scan, in place: the route_offsets kernel
-    _scan_kernel(scan, scan)
-    # 3. ranks, capacity, claims and the write
-    cell = torch.empty(n, dtype=torch.int32, device=dev)
-    winner = torch.full((n_dest * cap,), -1, dtype=torch.int32, device=dev)
-    _raise_on(lib.route_pack_launch(
-        ts.data_ptr(), key.data_ptr(), bits.data_ptr(), valid.data_ptr(), n,
-        n_dest, k_loc, cap, scan.data_ptr(), pos.data_ptr(), cell.data_ptr(),
-        winner.data_ptr(), send.data_ptr(), n_overflow.data_ptr(), index,
-        stream), "route_pack")
+    _raise_on(_lib().route_pack_launch(
+        ts.data_ptr(), key.data_ptr(), value.data_ptr(),
+        _VALUE_CODES[value.dtype], valid.data_ptr(), n, n_dest, k_loc, cap,
+        plan.rows_per_block, plan.cells_per_block,
+        pos.data_ptr() if with_pos else None, send.data_ptr(), n_overflow.data_ptr(), index, stream), "route_pack")
     route_pack.launches += 1
     return RoutePack(send, pos, n_overflow)
+
+
+def pack_cluster(cells_per_block: int, device_index: int
+                 ) -> Tuple[int, int, int]:
+    """``(blocks, threads a block, clusters the card holds at once)`` of
+    route_pack's launch with ``cells_per_block`` claims a block, from the
+    CUDA runtime's occupancy query."""
+    blocks, threads, clusters = (ctypes.c_int() for _ in range(3))
+    _raise_on(_lib().route_pack_cluster(
+        cells_per_block, ctypes.byref(blocks), ctypes.byref(threads),
+        ctypes.byref(clusters), device_index), "route_pack occupancy")
+    return blocks.value, threads.value, clusters.value
 
 
 route_counts.launches = 0

@@ -210,7 +210,7 @@ class StreamExecutor:
         late0 = state["dropped_late"].clone()
         conflict0 = state["dropped_conflict"].clone()
         pack = route_pack(ts, batch["key"], batch["value"], valid, n,
-                          self.k_loc, self.capacity)
+                          self.k_loc, self.capacity, with_pos=False)
         recv = coll.all_to_all(tr, pack.send)              # (n, 4, C)
         planes = recv.transpose(0, 1).reshape(4, -1)       # sources in order
         accumulate(self._loc_spec, state, planes[0],

@@ -6,8 +6,11 @@ they hold here unchanged.  Events arrive as fixed-size tensor batches
 ``{ts, key, value, valid}``; per (frame slot, key bucket) partial
 aggregates live in an ``(R, K)`` pane matrix:
 
-* **accumulate** (Jet stage 1) adds the batch into the panes with the
-  hand-written ``window_agg`` kernel (its plain version on CPU tensors);
+* **accumulate** (Jet stage 1) adds the batch into the panes: on a card
+  ONE launch of the hand-written ``accumulate`` kernel
+  (``kernels/window_agg.py``; lateness, ring conflicts, the pane
+  scatter-add, the ``slot_frame`` update, the drop counters and the
+  watermark), on CPU tensors its plain version;
 * **emit** (Jet stage 2) emits every window whose end the watermark has
   reached, ``max_windows_per_step`` windows per ``(E, R) @ (R, K)`` round,
   and evicts the frame each emitted window retires.
@@ -16,9 +19,9 @@ Where the port differs from the reference in mechanism (not in result):
 
 * State is updated **in place** (the reference's executor jits the step
   with ``donate_argnums=(0,)``, so nothing may hold the old state): the
-  kernel adds into ``panes``, eviction zeroes only the evicted rows instead
-  of rewriting the whole matrix, and the scalars are written with
-  ``copy_``.  A caller that keeps a state across a step clones it first
+  kernel adds into ``panes`` and writes ``slot_frame`` and the scalars,
+  eviction zeroes only the evicted rows instead of rewriting the whole
+  matrix.  A caller that keeps a state across a step clones it first
   (``StreamExecutor.snapshot`` does).
 * The emission ``lax.while_loop`` is driven from the host: each round ends
   in ONE device-to-host read that brings back the number of windows it
@@ -31,7 +34,10 @@ Where the port differs from the reference in mechanism (not in result):
   (``window.py:140-143``): an event lands at ``slot * K + key`` of the
   flattened panes, so a key bucket outside ``[0, K)`` lands in a
   neighbouring slot's pane, as in the reference; the ``window_agg`` op
-  itself keeps its kernel's semantics (out-of-range keys add nothing).
+  keeps its TPU kernel's semantics (out-of-range keys add nothing).
+* Every row reads its slot's occupant from the incoming ``slot_frame``, as
+  in the reference, before any row's frame is recorded: the kernel merges
+  the new frames in its last block (see ``csrc/window_agg.cu``).
 
 Every state scalar stays int32, and ``//`` and ``%`` on int32 tensors
 floor as ``jnp`` does, so frame ids, slots and window ends match the
@@ -46,7 +52,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..kernels.window_agg import window_agg_flat_into_
+from ..kernels.window_agg import accumulate_
 from ..devices import ieee_fp32_matmul
 
 #: sentinel for "no frame / uninitialised emission front" (int32-safe)
@@ -121,63 +127,22 @@ def window_state_init(spec: VectorWindowSpec,
 
 def accumulate(spec: VectorWindowSpec, state: Dict, ts, key_bucket, value,
                valid, wm_hint=None) -> Dict:
-    """Jet stage 1, vectorized pane accumulation, in place.
+    """Jet stage 1, vectorized pane accumulation, in place: on a card one
+    launch of the ``accumulate`` kernel, on the CPU its plain version
+    (``kernels/window_agg.py``; the dispatch follows the state's device).
 
     ``wm_hint``: optional scalar watermark heartbeat (idle-source marker):
     advances event time without carrying data."""
-    K, R, F = spec.n_key_buckets, spec.ring_len, spec.frames_per_window
-    frame = (ts // spec.slide_ms).to(torch.int32)
-    slot = frame % R                       # floor modulo: always in [0, R)
-
-    # lateness: frames below min_frame have had their last window emitted
-    ne = state["next_emit"]
-    min_frame = torch.where(ne < 0, -(2**30), ne // spec.slide_ms - F)
-    live = valid & (frame >= min_frame)
-    n_late = (valid & ~live).sum(dtype=torch.int32)
-
-    # ring-slot conflicts: slot occupied by a DIFFERENT still-live frame
-    slot_frame = state["slot_frame"]
-    occupant = slot_frame.index_select(0, slot)
-    conflict = live & (occupant >= 0) & (occupant != frame)
-    n_conflict = conflict.sum(dtype=torch.int32)
-    live = live & ~conflict
-
-    # the reference's flat scatter-add (window.py:140-143): the event goes
-    # to int32 index slot*K + key of the (R*K,) panes.  JAX indexing wraps
-    # an index in [-R*K, 0) by R*K first, and mode="drop" drops what is
-    # still outside [0, R*K); so a key outside [0, K) lands in a
-    # neighbouring slot (a negative one in the previous slot, or from slot
-    # 0 in slot R-1).  The kernel's flat form adds at that index into the
-    # flat view of the panes, and its bounds check drops exactly what the
-    # reference drops.
-    RK = R * K
-    combined = slot * K + key_bucket.to(torch.int32)
-    combined = torch.where(combined < 0, combined + RK, combined)
-    window_agg_flat_into_(state["panes"].view(RK), combined,
-                          value.to(torch.float32), live)
-
-    # record which frame now lives in each touched slot.  The reference
-    # scatter-maxes dead rows onto index R and drops them (window.py:147-148);
-    # torch's scatter_reduce_ raises there, so dead rows scatter -1 onto
-    # their own slot instead — a no-op under max, as slot_frame >= -1
-    slot_frame.scatter_reduce_(0, slot.long(), torch.where(live, frame, -1),
-                               reduce="amax")
-
-    wm = state["watermark"]
-    if spec.frontier_from_data:
-        # bounded out-of-orderness: the frontier trails the running-max
-        # timestamp by wm_lag, so cross-batch disorder within the
-        # allowance is admitted instead of dropped as late
-        frontier = torch.where(valid, ts, -1).amax().to(torch.int32) \
-            - spec.wm_lag
-        wm = torch.maximum(wm, frontier)
-    if wm_hint is not None:
-        wm = torch.maximum(wm, torch.as_tensor(wm_hint, dtype=torch.int32,
-                                               device=wm.device))
-    state["watermark"].copy_(wm)
-    state["dropped_late"].add_(n_late)
-    state["dropped_conflict"].add_(n_conflict)
-    return state
+    shape = (spec.ring_len, spec.n_key_buckets)
+    if tuple(state["panes"].shape) != shape:
+        raise ValueError(f"panes of shape {tuple(state['panes'].shape)}, "
+                         f"the spec's are {shape}")
+    return accumulate_(state, ts, key_bucket, value, valid,
+                       slide_ms=spec.slide_ms,
+                       frames_per_window=spec.frames_per_window,
+                       wm_lag=spec.wm_lag,
+                       frontier_from_data=spec.frontier_from_data,
+                       wm_hint=wm_hint)
 
 
 def emit(spec: VectorWindowSpec, state: Dict

@@ -6,10 +6,11 @@ PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances, ``window_agg``: counts exactly (integer sums below 2^24 are
-exact in f32 in any order); f32 sums ``rtol=1e-6, atol=1e-5`` (atomics add
-in no fixed order); bf16 values likewise, since kernel and plain version
-both widen the same bf16 values to f32 before adding.  ``decode_attention``:
+Tolerances, ``window_agg`` and ``accumulate``: counts exactly (integer
+sums below 2^24 are exact in f32 in any order); f32 sums ``rtol=1e-6,
+atol=1e-5`` (atomics add in no fixed order); bf16 and f16 values likewise,
+since kernel and plain version both widen the same values to f32 before
+adding.  ``accumulate``'s frames, counters and watermark: exactly.  ``decode_attention``:
 ``2e-5`` in every type, as ``tests/test_kernels.py`` holds the Pallas
 kernel to its oracle in f32 (the kernel sums in another order and scales q
 where the plain version scales the scores); both sides widen the same
@@ -29,17 +30,18 @@ from repro_torch.kernels import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.route import (  # noqa: E402
-    route_counts, route_counts_plain, route_offsets, route_offsets_plain,
-    route_pack, route_pack_plain)
+    pack_cluster, pack_plan, route_counts, route_counts_plain, route_offsets,
+    route_offsets_plain, route_pack, route_pack_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
-    window_agg, window_agg_flat_into_, window_agg_flat_plain_into_,
-    window_agg_plain_into_)
+    accumulate_, accumulate_plain_, window_agg, window_agg_plain_into_)
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     params_from_numpy, params_to_numpy)
+from repro_torch.nexmark import NexmarkGenerator  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
+from repro_torch.streaming.window import window_state_init  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 F32_TOL = dict(rtol=1e-6, atol=1e-5)
@@ -69,25 +71,17 @@ def _inputs(n, k, r, seed, device, counts=False, oob=False):
     (5000, 100, 6, False, True),           # keys/slots out of range
 ])
 def test_kernel_matches_plain(cuda, n, k, r, counts, oob):
-    """The op, and the flat form at accumulate's index (slot * K + key,
-    a negative one wrapped by R * K) into the flattened panes."""
+    """The op into its (K, R) output."""
     keys, slots, vals, valid = _inputs(n, k, r, n + k, cuda, counts, oob)
-    index = slots * k + keys
-    index = torch.where(index < 0, index + r * k, index)
     before = window_agg.launches
-    flat = window_agg_flat_into_(torch.zeros(r * k, device=cuda), index,
-                                 vals, valid)
     kr = window_agg(keys, slots, vals, valid, k, r)
     torch.cuda.synchronize()
-    assert window_agg.launches == before + 2
+    assert window_agg.launches == before + 1
     want = window_agg_plain_into_(torch.zeros((r, k), device=cuda), keys,
                                   slots, vals, valid)
-    want_flat = window_agg_flat_plain_into_(torch.zeros(r * k, device=cuda),
-                                            index, vals, valid)
     if counts:
-        assert torch.equal(flat, want_flat) and torch.equal(kr.t(), want)
+        assert torch.equal(kr.t(), want)
     else:
-        torch.testing.assert_close(flat, want_flat, **F32_TOL)
         torch.testing.assert_close(kr.t(), want, **F32_TOL)
 
 
@@ -111,15 +105,22 @@ def test_kernel_empty_batch_launches_nothing(cuda):
 
 
 def test_kernel_rejects_non_contiguous(cuda):
-    keys, slots, vals, valid = _inputs(64, 16, 4, 0, cuda)
+    keys, slots, vals, valid = _inputs(128, 16, 4, 0, cuda)
+    before = (window_agg.launches, accumulate_.launches)
     with pytest.raises(ValueError, match="contiguous"):
-        window_agg_flat_into_(torch.zeros(128, device=cuda)[::2], keys, vals,
-                              valid)
+        window_agg(keys[::2], slots[::2], vals[::2], valid[::2], 16, 4)
+    spec, state, calls, _ = _acc_case("two_frames_one_slot", cuda)
+    (ts, key, value, ok), _ = calls[0]
+    wide = torch.stack([ts, ts], 1)[:, 0]
+    with pytest.raises(ValueError, match="contiguous"):
+        accumulate_(state, wide, key, value, ok, **_acc_kw(spec))
+    assert (window_agg.launches, accumulate_.launches) == before
 
 
 def test_executor_on_cuda_matches_cpu(cuda):
     """One stretch of steps through both devices; the CUDA executor runs
-    the kernel on every step."""
+    the accumulate kernel on every step.  Then the route plan's accumulate
+    inputs through the kernel."""
     spec = VectorWindowSpec(size_ms=100, slide_ms=10, n_key_buckets=64,
                             max_windows_per_step=4, ring_margin=8)
     cfg = StreamJobConfig(window=spec, batch_size=128)
@@ -134,10 +135,11 @@ def test_executor_on_cuda_matches_cpu(cuda):
                 "valid": rng.rand(B) > 0.1}
 
     batches = [gen(i * 128, 128) for i in range(60)]
-    before = window_agg.launches
+    before = (window_agg.launches, accumulate_.launches)
     gpu = StreamExecutor(cfg)
     g_state, g_res = gpu.run_stream(lambda s, B: batches[s // B], 60)
-    assert window_agg.launches - before == 60
+    assert (window_agg.launches, accumulate_.launches) == (before[0],
+                                                           before[1] + 60)
     c_state, c_res = StreamExecutor(cfg, device="cpu").run_stream(
         lambda s, B: batches[s // B], 60)
     for k in c_state:
@@ -146,6 +148,222 @@ def test_executor_on_cuda_matches_cpu(cuda):
     for (ge, gr), (ce, cr) in zip(g_res, c_res):
         np.testing.assert_array_equal(ge, ce)
         np.testing.assert_array_equal(gr, cr)
+    _route_inputs_through_the_kernel(cuda)
+
+
+def _route_inputs_through_the_kernel(cuda):
+    """What the route plan hands accumulate (a rank's received planes: ts,
+    key less the rank's first bucket, the value's bits as float32, ok !=
+    0), through the kernel, against the plain version on the CPU."""
+    spec = VectorWindowSpec(size_ms=100, slide_ms=10, n_key_buckets=64,
+                            max_windows_per_step=4, ring_margin=8)
+    n, k_loc, cap, rank = 4, 16, 40, 1
+    loc = VectorWindowSpec(size_ms=100, slide_ms=10, n_key_buckets=k_loc,
+                           max_windows_per_step=4, ring_margin=8)
+    rng = np.random.RandomState(3)
+    states = {d: {k: v.to(d) for k, v in
+                  window_state_init(loc, device="cpu").items()}
+              for d in (cuda, "cpu")}
+    for step in range(20):
+        b = 128
+        arrays = ((step * 10 + np.sort(rng.randint(0, 10, b))).astype(
+                      np.int32),
+                  rng.randint(0, spec.n_key_buckets, b).astype(np.int32),
+                  rng.randn(b).astype(np.float32), rng.rand(b) > 0.1)
+        for d, state in states.items():
+            ts, key, value, valid = (torch.from_numpy(a).to(d)
+                                     for a in arrays)
+            send = route_pack(ts, key, value, valid, n, k_loc, cap).send
+            planes = send[rank]                       # (4, C) from one source
+            before = accumulate_.launches
+            accumulate_(state, planes[0], planes[1] - rank * k_loc,
+                        planes[2].view(torch.float32), planes[3] != 0,
+                        **_acc_kw(loc))
+            assert accumulate_.launches == before + (d == cuda)
+    for k, v in states["cpu"].items():
+        got = states[cuda][k].cpu()
+        if k == "panes":
+            torch.testing.assert_close(got, v, **F32_TOL)
+        else:
+            assert torch.equal(got, v), k
+
+
+# -- accumulate ---------------------------------------------------------------
+#: the paper's Q5 (chip_smoke.py): R = 1 000 + 8 slots of 16 384 buckets
+Q5 = VectorWindowSpec(size_ms=10_000, slide_ms=10, n_key_buckets=16_384,
+                      max_windows_per_step=8, ring_margin=8)
+#: a small ring, so that one batch spans it more than twice
+SMALL = VectorWindowSpec(size_ms=80, slide_ms=10, n_key_buckets=512,
+                         ring_margin=8)
+
+
+def _acc_kw(spec):
+    return dict(slide_ms=spec.slide_ms,
+                frames_per_window=spec.frames_per_window, wm_lag=spec.wm_lag,
+                frontier_from_data=spec.frontier_from_data)
+
+
+def _acc_case(name, device):
+    """``(spec, state, [((ts, key, value, valid), wm_hint), ...], exact)``
+    on ``device``: exact where every value is a count."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    spec = SMALL
+    if name.startswith("q5"):
+        spec = Q5
+    elif name == "no_frontier_wm_lag":
+        spec = VectorWindowSpec(size_ms=80, slide_ms=10, n_key_buckets=512,
+                                ring_margin=8, wm_lag=25,
+                                frontier_from_data=False)
+    R, K = spec.ring_len, spec.n_key_buckets
+    state = {"panes": np.zeros((R, K), np.float32),
+             "slot_frame": np.full(R, -1, np.int32),
+             "watermark": np.int32(-1), "next_emit": np.int32(-1),
+             "dropped_late": np.int32(0), "dropped_conflict": np.int32(0)}
+
+    def rows(ts, key, valid=None, value=None, dtype=torch.float32):
+        n = len(ts)
+        arrays = (np.asarray(ts, np.int32), np.asarray(key, np.int32),
+                  np.ones(n, np.float32) if value is None
+                  else np.asarray(value, np.float32),
+                  np.ones(n, bool) if valid is None
+                  else np.asarray(valid, bool))
+        t = [torch.from_numpy(a).to(device) for a in arrays]
+        t[2] = t[2].to(dtype)
+        return tuple(t)
+
+    def mixed(n, counts, dtype=torch.float32):
+        # frames 0..40 over 16 slots: frames share slots in the batch, the
+        # state's occupants conflict, frames below 7 are late, keys run
+        # past both ends of [0, K)
+        state["slot_frame"][:] = np.where(rng.rand(R) < 0.5,
+                                          np.arange(R) + R, -1)
+        state["next_emit"] = np.int32(150)
+        state["watermark"] = np.int32(149)
+        state["panes"] = rng.randint(0, 4, (R, K)).astype(np.float32)
+        state["dropped_late"] = np.int32(2)
+        key = rng.randint(-20, K + 40, n)
+        key[:3] = [-1, K, K + 17]
+        return rows(rng.randint(0, 410, n), key, rng.rand(n) < 0.9,
+                    None if counts else rng.randn(n), dtype)
+
+    exact = True
+    if name.startswith("q5"):
+        # step 7 of the stream: frames 0..6 are in the ring already
+        gen = NexmarkGenerator(rate=65_536 * 100, n_keys=10_000)
+        blk = gen.gen_block(np.arange(7 * 65_536, 8 * 65_536))
+        state["slot_frame"][:7] = np.arange(7)
+        state["panes"][:7] = rng.randint(0, 3, (7, K))
+        state["next_emit"] = np.int32(10)
+        state["watermark"] = np.int32(69)
+        prices = name == "q5_step_prices"
+        exact = not prices
+        calls = [(rows(blk.ts, blk.key % K, blk.cols["kind"] == 2,
+                       blk.value if prices else None), None)]
+    elif name == "two_frames_one_slot":
+        # frames 2 and 18 share slot 2, empty on entry: both go live
+        calls = [(rows([25, 185, 27, 183, 21], [1, 2, 1, 4, 9]), None)]
+    elif name == "conflicts":
+        state["slot_frame"][[2, 5]] = [2, 21]
+        state["next_emit"] = np.int32(30)
+        calls = [(rows([25, 185, 55, 211, 22, 189], [1, 2, 3, 4, 5, 6]),
+                  None)]
+    elif name == "late_rows":
+        state["next_emit"] = np.int32(150)       # min_frame 15 - 8 = 7
+        calls = [(rows([35, 69, 70, 71, 99, 12], [0, 1, 2, 3, 4, 5],
+                       [1, 1, 1, 1, 1, 0]), None)]
+    elif name == "mixed_counts":
+        calls = [(mixed(50_000, True), None)]
+    elif name == "mixed_sums":
+        calls = [(mixed(50_000, False), None)]
+        exact = False
+    elif name in ("bfloat16", "float16"):
+        calls = [(mixed(20_000, False, getattr(torch, name)), None)]
+        exact = False
+    elif name == "hint_int":
+        calls = [(rows([25, 31], [1, 2]), 1234)]
+    elif name == "hint_tensor":
+        calls = [(rows([25, 31], [1, 2]),
+                  torch.tensor(1234, dtype=torch.int32, device=device))]
+    elif name == "hint_below_frontier":
+        calls = [(rows([25, 310], [1, 2]), 7)]
+    elif name == "no_frontier_wm_lag":
+        calls = [(rows([25, 310, 47], [1, 2, 3]), 200)]
+    elif name == "two_calls":
+        calls = [(mixed(5_000, True), None), (mixed(5_000, True), 33)]
+    elif name == "empty_no_frontier":
+        spec = VectorWindowSpec(size_ms=80, slide_ms=10, n_key_buckets=512,
+                                ring_margin=8, frontier_from_data=False)
+        calls = [(rows([], []), 90)]
+    state = {k: torch.from_numpy(np.array(v)).to(device)
+             for k, v in state.items()}
+    return spec, state, calls, exact
+
+
+ACC_CASES = ["q5_step", "q5_step_prices", "two_frames_one_slot", "conflicts",
+             "late_rows", "mixed_counts", "mixed_sums", "bfloat16", "float16",
+             "hint_int", "hint_tensor", "hint_below_frontier",
+             "no_frontier_wm_lag", "two_calls", "empty_no_frontier"]
+
+
+@pytest.mark.parametrize("name", ACC_CASES)
+def test_accumulate_kernel_matches_plain(cuda, name):
+    """One launch a call (none for no rows), and the whole state equal to
+    the plain version's run on the card from the same state."""
+    spec, state, calls, exact = _acc_case(name, cuda)
+    want = {k: v.clone() for k, v in state.items()}
+    for (ts, key, value, valid), hint in calls:
+        before = accumulate_.launches
+        accumulate_(state, ts, key, value, valid, wm_hint=hint,
+                    **_acc_kw(spec))
+        torch.cuda.synchronize()
+        assert accumulate_.launches == before + (1 if ts.numel() else 0)
+        accumulate_plain_(want, ts, key, value, valid, wm_hint=hint,
+                          **_acc_kw(spec))
+        for k in want:
+            if k == "panes" and not exact:
+                torch.testing.assert_close(state[k], want[k], **F32_TOL)
+            else:
+                assert torch.equal(state[k], want[k]), (name, k)
+    if name == "mixed_counts":        # the case drops what it should
+        assert int(state["dropped_late"]) > 2
+        assert int(state["dropped_conflict"]) > 0
+
+
+def test_accumulate_kernel_resets_its_workspace(cuda):
+    """Back-to-back calls, and a call on another stream: the ticket, the ts
+    maximum and the slot maxima carry nothing from one call to the next."""
+    spec, state, calls, _ = _acc_case("two_calls", cuda)
+    want = {k: v.clone() for k, v in state.items()}
+    side = torch.cuda.Stream()
+    for i in range(6):
+        (ts, key, value, valid), hint = calls[i % 2]
+        stream = side if i == 3 else torch.cuda.current_stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            accumulate_(state, ts, key, value, valid, wm_hint=hint,
+                        **_acc_kw(spec))
+        torch.cuda.current_stream().wait_stream(stream)
+        accumulate_plain_(want, ts, key, value, valid, wm_hint=hint,
+                          **_acc_kw(spec))
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(state[k], want[k]), (i, k)
+
+
+def test_accumulate_kernel_rejects_what_it_cannot_read(cuda):
+    spec, state, calls, _ = _acc_case("two_frames_one_slot", cuda)
+    (ts, key, value, valid), _ = calls[0]
+    before = accumulate_.launches
+    with pytest.raises(TypeError, match="int32"):
+        accumulate_(state, ts.long(), key, value, valid, **_acc_kw(spec))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        accumulate_(state, ts, key, value.double(), valid, **_acc_kw(spec))
+    with pytest.raises(ValueError, match="the state on"):
+        accumulate_(state, ts.cpu(), key, value, valid, **_acc_kw(spec))
+    with pytest.raises(ValueError, match="no rows"):
+        accumulate_(state, ts[:0], key[:0], value[:0], valid[:0],
+                    **_acc_kw(spec))
+    assert accumulate_.launches == before
 
 
 # -- decode_attention ---------------------------------------------------------
@@ -369,21 +587,80 @@ def _pack_args(n_rows, n, k_loc, seed, device, oob=False, skew=None):
     (2049, 1, 10, 4096, False, None),       # one shard; a ragged tile
     (5000, 32, 3, 20, True, None),          # the most destinations
     (0, 4, 8, 8, False, None),
+    # rows around a tile and a cluster's first wave of tiles
+    (1, 4, 8, 8, False, None),
+    (1023, 2, 64, 600, False, None),
+    (1024, 2, 64, 600, True, None),
+    (1025, 2, 64, 600, False, 1),
+    (8 * 1024 + 1, 4, 100, 3000, True, None),
+    (2**20, 8, 512, 2**15, False, None),    # 16 tiles a block
+    (2**20, 4, 4096, 2**16, False, 3),      # and overflow past C
+    # C = 1: every row of a destination after its first overflows
+    (3000, 4, 8, 1, True, None),
+    (3000, 32, 2, 1, False, 31),
 ])
 def test_route_pack_kernel_matches_plain(cuda, n_rows, n, k_loc, cap, oob,
                                          skew):
+    """One launch of route_pack's cluster kernel and nothing else."""
     args = _pack_args(n_rows, n, k_loc, n_rows + n, cuda, oob, skew)
     before = (route_counts.launches, route_offsets.launches,
               route_pack.launches)
     got = route_pack(*args, n, k_loc, cap)
     torch.cuda.synchronize()
-    launched = 1 if n_rows else 0
     assert (route_counts.launches, route_offsets.launches,
-            route_pack.launches) == tuple(b + launched for b in before)
+            route_pack.launches) == (before[0], before[1],
+                                     before[2] + (1 if n_rows else 0))
     want = route_pack_plain(*args, n, k_loc, cap)
     assert torch.equal(got.send, want.send)
     assert torch.equal(got.pos, want.pos)
     assert int(got.n_overflow) == int(want.n_overflow)
+    # as the route plan calls it: the same send, no positions stored
+    bare = route_pack(*args, n, k_loc, cap, with_pos=False)
+    assert bare.pos is None and torch.equal(bare.send, want.send)
+    assert int(bare.n_overflow) == int(want.n_overflow)
+    if skew == n - 1 or cap == 1:
+        assert int(want.n_overflow) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_route_pack_kernel_half_values(cuda, dtype):
+    """bf16 and f16 values go out as their float32 bits."""
+    args = _pack_args(5000, 4, 64, 9, cuda)
+    args[2] = args[2].to(dtype)
+    got = route_pack(*args, 4, 64, 2000)
+    want = route_pack_plain(*args, 4, 64, 2000)
+    assert torch.equal(got.send, want.send)
+    assert torch.equal(got.pos, want.pos)
+
+
+def test_route_pack_writes_every_cell(cuda):
+    """send, pos and n_overflow come from torch.empty: a buffer whose
+    memory held a non-zero pattern before the call must come out equal to
+    the plain version, every cell written by the kernel."""
+    args = _pack_args(16384, 4, 4096, 7, cuda, skew=2)
+    want = route_pack_plain(*args, 4, 4096, 8192)
+    for _ in range(3):
+        torch.full((4, 4, 8192), -7, dtype=torch.int32, device=cuda)
+        torch.full((16384,), 123, dtype=torch.int32, device=cuda)
+        torch.full((), 99, dtype=torch.int32, device=cuda)
+        got = route_pack(*args, 4, 4096, 8192)
+        torch.cuda.synchronize()
+        assert torch.equal(got.send, want.send)
+        assert torch.equal(got.pos, want.pos)
+        assert int(got.n_overflow) == int(want.n_overflow)
+
+
+def test_route_pack_cluster_fits_the_card(cuda):
+    """The cluster of the path's plan (8 blocks of 1024 threads, 16 KB of
+    claims each) and of the largest plan fit on the card at least once."""
+    for n_dest, cap in ((4, 8192), (32, 12288)):
+        plan = pack_plan(16384, n_dest, cap)
+        blocks, threads, clusters = pack_cluster(plan.cells_per_block,
+                                                 cuda.index or 0)
+        assert (blocks, threads) == (plan.blocks, 1024)
+        assert clusters >= 1
+    with pytest.raises(ValueError, match="cluster's shared memory"):
+        route_pack(*_pack_args(100, 32, 2, 0, cuda), 32, 2, 12289)
 
 
 def test_route_failed_launch_raises(cuda, monkeypatch):

@@ -24,8 +24,7 @@ from repro.streaming.window import (  # noqa: E402
     window_state_init as jax_state_init)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.window_agg import (  # noqa: E402
-    window_agg, window_agg_flat_into_, window_agg_flat_plain_into_,
-    window_agg_plain_into_)
+    window_agg, window_agg_plain_into_)
 from repro_torch.streaming.window import (  # noqa: E402
     VectorWindowSpec, accumulate, window_state_init)
 
@@ -102,37 +101,6 @@ def test_window_agg_value_dtypes(dtype):
                 dtype=getattr(jnp, dtype))
     tol = F32_TOL if dtype == "float32" else dict(rtol=2e-2, atol=1e-5)
     np.testing.assert_allclose(got, want, **tol)
-
-
-def test_window_agg_into_matches_transposed():
-    """The in-place flat form, at index slot * K + key of the flattened
-    (R, K) panes, adds what the (K, R) form returns."""
-    k, r = 129, 7
-    keys, slots, vals, valid = (torch.from_numpy(a) for a in
-                                _inputs(2000, k, r, seed=5))
-    base = torch.from_numpy(np.random.RandomState(6).randn(r, k)
-                            .astype(np.float32))
-    panes = base.clone()
-    out = window_agg_flat_into_(panes.view(-1), slots * k + keys, vals,
-                                valid)
-    assert out.data_ptr() == panes.data_ptr()
-    kr = window_agg(keys, slots, vals, valid, k, r)
-    np.testing.assert_allclose(panes.numpy(), (base + kr.t()).numpy(),
-                               **F32_TOL)
-
-
-def test_window_agg_flat_drops_outside_the_vector():
-    """The flat form adds nothing for an index outside [0, len): the
-    reference scatter's ``mode="drop"``; no launch on CPU tensors."""
-    index = torch.tensor([-1, 0, 5, 6, 2**31 - 1, 3], dtype=torch.int32)
-    vals = torch.arange(1, 7, dtype=torch.float32)
-    valid = torch.tensor([True, True, True, True, True, False])
-    before = window_agg.launches
-    got = window_agg_flat_into_(torch.zeros(6), index, vals, valid)
-    assert window_agg.launches == before
-    assert got.tolist() == [2, 0, 0, 0, 0, 3]
-    assert torch.equal(window_agg_flat_plain_into_(torch.zeros(6), index,
-                                                   vals, valid), got)
 
 
 def test_window_agg_rejects_bad_inputs():

@@ -23,8 +23,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops, ref  # noqa: E402
 from repro.kernels.route import route_offsets as jax_route_offsets  # noqa
 from repro_torch.kernels.route import (  # noqa: E402
-    MAX_DEST, route_counts, route_counts_plain, route_offsets,
-    route_offsets_plain, route_pack, route_pack_plain)
+    CLUSTER_BLOCKS, MAX_CELLS_PER_BLOCK, MAX_DEST, pack_plan, route_counts,
+    route_counts_plain, route_offsets, route_offsets_plain, route_pack,
+    route_pack_plain)
 
 
 def _counts_inputs(n, p, seed, lo=0, hi=None, keep=0.7):
@@ -207,6 +208,19 @@ def test_route_pack_out_of_range_key(key, dest_cell):
     assert cells == ([] if dest_cell is None else [list(dest_cell)])
 
 
+@pytest.mark.parametrize("n_rows", [0, 300])
+def test_route_pack_without_positions(n_rows):
+    """``with_pos=False``, as the route plan calls it: the same send planes
+    and overflow count, and no positions."""
+    arrays = [torch.from_numpy(a)
+              for a in _pack_inputs(n_rows, 3, 5, seed=4, oob=True, skew=1)]
+    want = route_pack(*arrays, 3, 5, 8)
+    got = route_pack(*arrays, 3, 5, 8, with_pos=False)
+    assert got.pos is None and want.pos is not None
+    assert torch.equal(got.send, want.send)
+    assert int(got.n_overflow) == int(want.n_overflow)
+
+
 def test_route_pack_rejects_bad_inputs():
     arrays = [torch.from_numpy(a) for a in _pack_inputs(10, 2, 4, seed=0)]
     with pytest.raises(ValueError, match="n_dest"):
@@ -235,3 +249,39 @@ def test_plain_versions_count_no_launch():
     route_pack_plain(ts, key, value, valid, 4, 8, 16)
     assert (route_counts.launches, route_offsets.launches,
             route_pack.launches) == before     # CPU tensors launch nothing
+
+
+# -- route_pack's cluster plan (the kernel's CPU mirror) --------------------------
+
+@pytest.mark.parametrize("n,n_dest,cap", [
+    (1, 1, 1), (1023, 4, 8), (1024, 4, 8192), (1025, 2, 300),
+    (16384, 4, 8192),                   # the 4-rank Q5 path's shape
+    (2**20, 8, 4096), (5000, 32, 20), (7 * 1024 + 1, 3, 1),
+    (9 * 1024, 32, 12288),              # the most cells the cluster holds
+])
+def test_pack_plan_covers_each_row_and_cell_once(n, n_dest, cap):
+    """Block b's rows [b * rows, (b + 1) * rows) and cells [b * cells, ...)
+    cover every row and every send cell exactly once, in whole 1024-row
+    tiles, within a block's shared memory."""
+    plan = pack_plan(n, n_dest, cap)
+    assert plan.blocks == CLUSTER_BLOCKS
+    assert plan.rows_per_block % 1024 == 0
+    rows = np.zeros(n, np.int64)
+    cells = np.zeros(n_dest * cap, np.int64)
+    for b in range(plan.blocks):
+        rows[b * plan.rows_per_block:(b + 1) * plan.rows_per_block] += 1
+        cells[b * plan.cells_per_block:(b + 1) * plan.cells_per_block] += 1
+    assert (rows == 1).all() and (cells == 1).all()
+    assert plan.cells_per_block <= MAX_CELLS_PER_BLOCK
+    assert plan.smem_bytes == 4 * plan.cells_per_block <= 192 * 1024
+
+
+@pytest.mark.parametrize("n_dest,cap", [(32, 12289), (8, 2**16), (1, 400000)])
+def test_pack_plan_refuses_cells_beyond_the_cluster(n_dest, cap):
+    with pytest.raises(ValueError, match="cluster's shared memory"):
+        pack_plan(1000, n_dest, cap)
+
+
+def test_pack_plan_refuses_rows_a_claim_cannot_name():
+    with pytest.raises(ValueError, match="rows"):
+        pack_plan(2**30, 4, 8)
