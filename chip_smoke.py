@@ -7,16 +7,19 @@ CUDA card and the CUDA toolkit:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --ranks`` runs phases 1, 2 and 9 alone (on a
-host with 4 cards: the ranks over NCCL, a card each).
+host with 4 cards: the ranks over NCCL, a card each); ``python3
+chip_smoke.py --engine`` runs phases 1, 2 and 10 alone.
 
-It drives three paths of the port: device-tier NEXMark Q5 on one card
+It drives four paths of the port: device-tier NEXMark Q5 on one card
 (``window_agg``'s library: one fused ``accumulate`` launch a step), LM
-serving (``decode_attention``) and Q5 across 4 ranks under the route
+serving (``decode_attention``), Q5 across 4 ranks under the route
 exchange (one ``route_pack`` cluster launch and one ``accumulate`` a rank
-a step).  The ``window_agg`` op, ``route_counts`` and ``route_offsets``
-are held in phases 3 and 10 as the TPU kernels' counterparts and launch
-on no path.  Phases, in order; any failure ends the run with a non-zero
-exit and no result line:
+a step), and the paper's main path: ``queries.q5(placement="device")``
+through the port's host engine into its ``DeviceWindowProcessor`` (one
+``accumulate`` a device step).  The ``window_agg`` op, ``route_counts``
+and ``route_offsets`` are held in phases 3 and 11 as the TPU kernels'
+counterparts and launch on no path.  Phases, in order; any failure ends
+the run with a non-zero exit and no result line:
 
 1. card: its name and power limit (``nvidia-smi``);
 2. build: every kernel from ``src/repro_torch/kernels/csrc`` with
@@ -49,7 +52,21 @@ exit and no result line:
    full-width panes a rank a step, through the host on gloo); then the
    route step with the fused accumulate against the plain one, in turns,
    and a profiled stretch of each on rank 0;
-10. timing: Q5's wall a step with the fused accumulate against the plain
+10. engine path: ``queries.q5(placement="device")`` through the port's
+    ``JetCluster``, in process, on the card.  (a) On a virtual clock, the
+    reference test's stream (40 auctions, 12 000 events, window 100 /
+    slide 20): device placement equals host placement exactly, with no
+    late drops, and two nodes with exactly-once snapshots through a
+    ``kill_node`` equal the run without a failure (the restore builds the
+    window state on the card).  (b) At the paper's shape on the wall
+    clock (10 s window sliding by 10 ms, 10 000 auctions, 16 384 key
+    buckets, batches of 16 384), paced at 100 000 events/s: every
+    ``(window_end, auction)`` count equal to a numpy oracle, no drops or
+    bucket collisions, one ``accumulate`` a device step; it prints the
+    events/s and results/s sustained, whether the run kept pace, the
+    sink's event-to-result latency, the vertices' time shares and the
+    device time a step;
+11. timing: Q5's wall a step with the fused accumulate against the plain
     one, in turns; each kernel at its path's shape beside its plain
     version, its library yardstick and its bound (``decode_attention``
     also at the ``decode_32k`` shape);
@@ -58,7 +75,7 @@ exit and no result line:
     time by kernel, the device's idle share; Q5 also with the plain
     accumulate) — last, because the profiler slows every launch after
     it;
-11. the numbers line, the kernels line, the card line, and last the result
+12. the numbers line, the kernels line, the card line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 Before each path runs, the launch counts of its kernels are set to 0 (in
@@ -68,6 +85,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import array
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -87,6 +105,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    CollectorSink, DeviceWindowProcessor, GUARANTEE_EXACTLY_ONCE,
+    GUARANTEE_NONE, JetCluster, JobConfig, PacedGeneratorSource, Processor,
+    VirtualClock, WallClock)
+from repro_torch.core.engine import JOB_COMPLETED  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.kernels import _build, decode_attn  # noqa: E402
@@ -103,7 +126,7 @@ from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
 from repro_torch.models import lm, transformer  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     params_from_numpy, params_to_numpy)
-from repro_torch.nexmark import NexmarkGenerator  # noqa: E402
+from repro_torch.nexmark import NexmarkGenerator, queries  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
 from repro_torch.streaming import window as stream_window  # noqa: E402
@@ -263,7 +286,7 @@ def launch_counts() -> dict:
 def plain_accumulate():
     """Within the block, the streaming tier's accumulate runs its plain
     version on the card (about 35 PyTorch launches) instead of the fused
-    kernel: the yardstick of phase 10's comparisons, never a path's run."""
+    kernel: the yardstick of phase 11's comparisons, never a path's run."""
     fused = stream_window.accumulate_
     stream_window.accumulate_ = accumulate_plain_
     try:
@@ -1400,6 +1423,289 @@ def q5_ranks() -> dict:
 
 
 # -- phase 10 ----------------------------------------------------------------
+#: (a): test_device_window.py's _run_q5 stream
+EQUIV_RATE, EQUIV_EVENTS = 60_000, 12_000
+EQUIV_DEVICE = dict(n_key_buckets=64, batch_size=256)
+#: (b): PERF.md §4's Q5 through the engine, paced on the wall clock
+ENGINE_RATE = 100_000            # events/s: 1 000 a 10 ms frame
+#: 1 500 frames, 500 full windows.  Every 10 ms slide closes a window over
+#: nearly all 10 000 auctions, and the end of the stream closes 999 more:
+#: 24.8 M results, converted on the host at about 3 µs each (PERF.md §5)
+ENGINE_EVENT_S = 15.0
+ENGINE_BATCH = 16_384
+ENGINE_WARMUP_S = 1.0            # bench_latency.host_q5_latency's cut
+ENGINE_DEADLINE_S = 300.0
+
+
+def device_procs(job) -> list:
+    return [t.processor for t in job.execution.tasklets
+            if isinstance(t.processor, DeviceWindowProcessor)]
+
+
+def engine_q5(dev, placement: str, n_nodes: int = 1,
+              exactly_once: bool = False, kill_at_result=None):
+    """Q5 through the port's ``JetCluster`` on a virtual clock, as
+    ``tests/test_device_window.py::_run_q5`` runs the reference: the sorted
+    set of ``(ts, key, window_end, value)``, the late drops, and the
+    device processors of the last execution."""
+    gen = NexmarkGenerator(rate=EQUIV_RATE, n_keys=40)
+    cluster = JetCluster(n_nodes=n_nodes, cooperative_threads=2,
+                         clock=VirtualClock(auto_step=0.001))
+    out = []
+    p = queries.q5(
+        lambda: PacedGeneratorSource(gen, rate=EQUIV_RATE,
+                                     max_events=EQUIV_EVENTS),
+        lambda: CollectorSink(out), window_ms=100, slide_ms=20,
+        placement=placement, device=dict(EQUIV_DEVICE, device=dev))
+    job = cluster.submit(p.to_dag(), JobConfig(
+        processing_guarantee=GUARANTEE_EXACTLY_ONCE if exactly_once
+        else GUARANTEE_NONE, snapshot_interval_s=0.02))
+    killed = False
+    for _ in range(4_000_000):
+        if job.status == JOB_COMPLETED:
+            break
+        cluster.step()
+        if (kill_at_result is not None and not killed
+                and len(out) >= kill_at_result and job.snapshots_taken > 0):
+            cluster.kill_node(cluster.node_ids[-1])
+            killed = True
+    if job.status != JOB_COMPLETED:
+        raise AssertionError(f"{placement} Q5 job ended {job.status}")
+    if kill_at_result is not None and not killed:
+        raise AssertionError("the node was never killed")
+    drops = sum(getattr(t.processor, "late_dropped", 0)
+                for t in job.execution.tasklets)
+    return (sorted(set((ev.ts, ev.key, ev.value.window_end, ev.value.value)
+                       for ev in out)), drops, device_procs(job))
+
+
+def engine_equivalence(dev) -> dict:
+    """(a): device placement on the card against host placement, and the
+    exactly-once restore through a node kill."""
+    host, host_drops, _ = engine_q5(dev, "host")
+    zero_counts()
+    got, drops, procs = engine_q5(dev, "device")
+    launches = launch_counts()
+    if not procs or any(p.executor.device.type != "cuda" for p in procs):
+        raise AssertionError("the device vertex did not run on the card")
+    if got != host or not got:
+        raise AssertionError(f"device placement gave {len(got)} results, "
+                             f"host placement {len(host)}; they differ")
+    if drops or host_drops:
+        raise AssertionError(f"late drops: device {drops}, host {host_drops}")
+    steps = sum(p._steps for p in procs) + len(procs)   # + the warm-ups
+    if launches["accumulate"] != steps or launches["window_agg"]:
+        raise AssertionError(f"{launches} in {steps} device steps")
+    base, _, _ = engine_q5(dev, "device", n_nodes=2)
+    killed, _, procs = engine_q5(dev, "device", n_nodes=2,
+                                 exactly_once=True, kill_at_result=30)
+    if killed != base or base != host:
+        raise AssertionError("the run through kill_node differs from the "
+                             "run without a failure")
+    if not procs or any(p.executor.device.type != "cuda" for p in procs):
+        raise AssertionError("the restored device vertex is not on the card")
+    res = {"results": len(got), "device_steps": steps,
+           "accumulate_launches": launches["accumulate"],
+           "kill_node_results": len(killed)}
+    log(f"engine (a): device placement on the card equals host placement "
+        f"({len(got)} results, no late drops); through kill_node equal to "
+        f"the run without a failure; {json.dumps(res)}")
+    return res
+
+
+def engine_oracle(gen, total: int) -> np.ndarray:
+    """Every window's bid count per auction from the generator's sequence
+    numbers alone: row L is the window ending at (L + 1) * slide, up to
+    the last window the end of the stream closes."""
+    F = SPEC.frames_per_window
+    blk = gen.gen_block(np.arange(total))
+    bid = blk.cols["kind"] == 2
+    frames = (blk.ts[bid] // SLIDE_MS).astype(np.int64)
+    n_frames = int(frames.max()) + 1
+    hist = np.zeros((n_frames + F - 1, N_AUCTIONS), np.int64)
+    np.add.at(hist, (frames, blk.key[bid]), 1)
+    return window_oracle(hist)
+
+
+class ResultColumns(Processor):
+    """Phase 10's sink: each result's window, auction and value appended
+    to columns, and one clock read for each batch the tasklet hands it
+    (its results arrive together)."""
+
+    def __init__(self, clock, cols: dict):
+        self.clock, self.cols = clock, cols
+
+    def process(self, ordinal, inbox) -> None:
+        cols = self.cols
+        put_ts, put_key = cols["ts"].append, cols["key"].append
+        put_value = cols["value"].append
+        n = 0
+        for ev in inbox:
+            put_ts(ev.ts)
+            put_key(ev.key)
+            put_value(ev.value.value)
+            n += 1
+        inbox.clear()
+        cols["now"].append(self.clock.now())
+        cols["count"].append(n)
+
+
+def percentiles_ms(lat_s: np.ndarray) -> dict:
+    """p50 / p99 / p99.99 of latencies in seconds, in ms; a p99.99 needs
+    10 000 samples (bench_latency.P9999_MIN_SAMPLES)."""
+    p50, p99, p9999 = np.percentile(lat_s, [50, 99, 99.99]) * 1e3
+    return {"samples": int(lat_s.size), "p50_ms": p50, "p99_ms": p99,
+            "p99.99_ms": p9999 if lat_s.size >= 10_000 else None,
+            "max_ms": float(lat_s.max()) * 1e3}
+
+
+def engine_paced(dev, event_s: float = ENGINE_EVENT_S) -> dict:
+    """(b): Q5 at the paper's shape through the engine on the wall clock,
+    paced at ``ENGINE_RATE``.  Latency as bench_latency.host_q5_latency
+    takes it: the ideal time of a result is ``t0 + (ts + 1) / 1000``
+    (``ts`` is its window end - 1), results before ``t0 + warm-up`` and
+    those the end of the stream flushes early are cut."""
+    total = int(ENGINE_RATE * event_s)
+    gen = NexmarkGenerator(rate=ENGINE_RATE, n_keys=N_AUCTIONS)
+    t0 = time.perf_counter()
+    oracle = engine_oracle(gen, total)
+    log(f"engine (b): oracle of {oracle.shape[0]} windows x {N_AUCTIONS} "
+        f"auctions from {total} events in {time.perf_counter() - t0:.1f} s")
+    clock = WallClock()
+    cluster = JetCluster(n_nodes=1, cooperative_threads=1, clock=clock)
+    cols = {"ts": array.array("q"), "key": array.array("q"),
+            "value": array.array("d"), "now": array.array("d"),
+            "count": array.array("q")}
+    p = queries.q5(
+        lambda: PacedGeneratorSource(gen, rate=ENGINE_RATE, max_events=total),
+        lambda: ResultColumns(clock, cols), window_ms=WINDOW_MS,
+        slide_ms=SLIDE_MS,
+        placement="device",
+        device=dict(n_key_buckets=K, batch_size=ENGINE_BATCH, device=dev))
+    zero_counts()
+    job = cluster.submit(p.to_dag(), JobConfig())    # warm-up step in init
+    procs = device_procs(job)
+    if len(procs) != 1 or procs[0].executor.device.type != "cuda":
+        raise AssertionError("expected one device vertex on the card")
+    proc = procs[0]
+    # instrumentation: CUDA events and the host clock around every device
+    # step, the host clock around every conversion of a step's results
+    marks, host_s = [], {"step": 0.0, "convert": 0.0}
+    step, convert = proc.executor.step, proc._convert
+
+    def timed_step(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        r = step(*args, **kw)
+        e1.record()
+        host_s["step"] += time.perf_counter() - t
+        marks.append((e0, e1))
+        return r
+
+    def timed_convert(out):
+        t = time.perf_counter()
+        convert(out)
+        host_s["convert"] += time.perf_counter() - t
+
+    proc.executor.step, proc._convert = timed_step, timed_convert
+    t0 = clock.now()
+    deadline = time.monotonic() + ENGINE_DEADLINE_S
+    while job.status != JOB_COMPLETED:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the paced Q5 job did not complete in "
+                                 f"{ENGINE_DEADLINE_S} s")
+        cluster.step()
+    t_done = clock.now()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    ts, key = (np.frombuffer(cols[k], np.int64) for k in ("ts", "key"))
+    value = np.frombuffer(cols["value"], np.float64)
+    at = np.repeat(np.frombuffer(cols["now"], np.float64),
+                   np.frombuffer(cols["count"], np.int64))
+    rows = (ts + 1) // SLIDE_MS - 1
+    if rows.min() < 0 or rows.max() >= oracle.shape[0] or \
+            key.min() < 0 or key.max() >= N_AUCTIONS:
+        raise AssertionError("a result outside the oracle's windows")
+    flat = rows * N_AUCTIONS + key
+    if np.unique(flat).size != flat.size:
+        raise AssertionError("a (window_end, auction) emitted twice")
+    got = np.zeros(oracle.size, np.int64)
+    got[flat] = value.astype(np.int64)
+    if not np.array_equal(got, oracle.ravel()) or \
+            not np.array_equal(value, got[flat]):
+        bad = np.flatnonzero(got != oracle.ravel())
+        raise AssertionError(f"{bad.size} (window, auction) counts differ "
+                             f"from the oracle, e.g. {bad[:5]}")
+    counters = {"late_dropped": proc.late_dropped,
+                "conflict_dropped": proc.conflict_dropped,
+                "bucket_collisions": proc.bucket_collisions}
+    if any(counters.values()):
+        raise AssertionError(f"drops or collisions: {counters}")
+    steps = proc._steps + 1                         # + the warm-up
+    others = {k: v for k, v in launches.items() if k != "accumulate"}
+    if launches["accumulate"] != steps or any(others.values()):
+        raise AssertionError(f"{launches} in {steps} device steps")
+
+    ideal = t0 + (ts + 1) / 1000.0
+    end = t0 + total / ENGINE_RATE
+    kept = (at >= t0 + ENGINE_WARMUP_S) & (ideal <= end)
+    lat = percentiles_ms(at[kept] - ideal[kept])
+    # the stream's input is processed once the last window that closes
+    # inside it reaches the sink
+    last_end = int(ts[ideal <= end].max()) + 1
+    t_in = float(at[ts + 1 == last_end].max())
+    lag_s = t_in - (t0 + last_end / 1000.0)
+    ends = (np.unique(rows) + 1) * SLIDE_MS
+    dev_ms = [a.elapsed_time(b) for a, b in marks]
+    stats = job.execution.stats()
+    res = {
+        "event_s": event_s, "offered_events_per_s": ENGINE_RATE,
+        "events": total, "results": int(ts.size),
+        "windows": int(ends.size),
+        "full_windows": int(np.sum((ends >= WINDOW_MS) & (ends <= last_end))),
+        "wall_s": t_done - t0, "input_wall_s": t_in - t0,
+        "input_events_per_s": total / (t_in - t0),
+        "results_per_s": ts.size / (t_done - t0),
+        "results_per_s_in_stream": int(np.sum(at <= t_in)) / (t_in - t0),
+        "kept_pace": bool(lag_s <= 1.0), "end_of_stream_lag_s": lag_s,
+        "latency": lat,
+        "vertex_time_share": cluster.vertex_time_share(),
+        "device_steps": steps,
+        "accumulate_launches": launches["accumulate"],
+        "step_device_ms_mean": float(np.mean(dev_ms)),
+        "step_device_ms_p50_p99": np.percentile(dev_ms, [50, 99]).tolist(),
+        "step_host_ms_mean": host_s["step"] / len(marks) * 1e3,
+        "convert_host_s": host_s["convert"],
+        "convert_us_per_result": host_s["convert"] / ts.size * 1e6,
+        "engine": {k: stats[k] for k in ("items_in", "items_out", "calls",
+                                          "idle_calls")},
+        **counters,
+    }
+    log(f"engine (b): {res['windows']} windows x auctions equal the numpy "
+        f"oracle exactly ({ts.size} results); drops and collisions 0; "
+        f"{steps} device steps, one accumulate each")
+    log(f"engine (b): input {res['input_events_per_s']:.1f} events/s "
+        f"(offered {ENGINE_RATE}), results {res['results_per_s']:.1f}/s, "
+        f"kept pace: {res['kept_pace']} (end of stream "
+        f"{lag_s:.3f} s late)")
+    log(f"engine (b): latency p50 {lat['p50_ms']} ms, p99 {lat['p99_ms']} "
+        f"ms, p99.99 {lat['p99.99_ms']} ms over {lat['samples']} results")
+    log(f"engine (b): vertex time share "
+        f"{json.dumps(res['vertex_time_share'])}")
+    log(f"engine (b): {json.dumps(res)}")
+    return res
+
+
+def engine_path(dev) -> dict:
+    """Phase 10: (a), then (b)."""
+    return {"equivalence": engine_equivalence(dev),
+            "paced": engine_paced(dev)}
+
+
+# -- phase 11 ----------------------------------------------------------------
 def route_timing_cases(dev):
     """Each route kernel at the 4-rank path's shape (rank 0's slice of a Q5
     step: 16 384 events, 4 destinations of 4 096 buckets, C = 8 192): its
@@ -1850,6 +2156,15 @@ def ranks_only(name: str, smi: str) -> int:
     return 0
 
 
+def engine_only(name: str, smi: str) -> int:
+    """``--engine``: phase 10 alone, after the card and the build."""
+    print(json.dumps({"engine": engine_path(torch.device("cuda"))}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1860,6 +2175,8 @@ def main() -> int:
     build()
     if sys.argv[1:] == ["--ranks"]:
         return ranks_only(name, smi)
+    if sys.argv[1:] == ["--engine"]:
+        return engine_only(name, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -1884,7 +2201,14 @@ def main() -> int:
     ranks = q5_ranks()
     for entry in routes:
         entry["launches"] = ranks["route"]["launches"][entry["name"]]
-    # phase 10: event timings first, then the profiler
+    engine = engine_path(dev)
+    acc["launches_by_path"] = {
+        "q5_run_stream": path["launches"]["accumulate"],
+        "q5_ranks_route": ranks["route"]["launches"]["accumulate"],
+        "engine_equivalence": engine["equivalence"]["accumulate_launches"],
+        "engine_paced": engine["paced"]["accumulate_launches"]}
+    acc["launches"] = sum(acc["launches_by_path"].values())
+    # phase 11: event timings first, then the profiler
     ab = q5_wall_ab(dev)
     attn.update(time_decode_attention(dev))
     time_route(dev, routes)
@@ -1909,7 +2233,7 @@ def main() -> int:
                       "serve": serve, "serve_tf32": tf32,
                       "serve_card_vs_cpu": vs_cpu,
                       "serve_profile": serve_prof, "q5_ranks": ranks,
-                      "total_s": total}))
+                      "engine": engine, "total_s": total}))
     print(json.dumps({"kernels": [window, acc, attn, *routes]}))
     print(smi)
     # the run uses one card, whatever the host holds

@@ -3,11 +3,15 @@
 The layout mirrors ``src/repro/`` so that each module's counterpart is
 easy to find.  The port imports ``torch`` and numpy, never ``jax`` and
 nothing of ``repro``: what it needs of a framework-free reference module
-it keeps as its own copy (``core/events.py``, ``nexmark/model.py``,
-``nexmark/generator.py``, ``models/config.py``, ``configs/``).
+it keeps as its own copy (the host engine: ``core/`` but
+``device_window.py``, ``state/``, ``runtime/supervisor.py``,
+``nexmark/``; ``models/config.py``, ``configs/``).
 
-Ported so far: the device tier, ``streaming.StreamExecutor`` over
-``streaming.window``, whose stage-1 pane scatter is the hand-written Hopper
+Ported so far: the paper's main path, ``nexmark.queries.q5(...,
+placement="device")`` through the host engine (``core.JetCluster``, its
+tasklets, snapshots and planner) into ``core.DeviceWindowProcessor``,
+which drives the device tier on the card; the device tier,
+``streaming.StreamExecutor`` over ``streaming.window``, whose stage-1 pane scatter is the hand-written Hopper
 kernel ``kernels.window_agg``, on one device or one process per shard of a
 ``launch.mesh`` (``streaming.collectives``), where the route exchange lays
 out its all-to-all with the kernels of ``kernels.route``; and LM serving,

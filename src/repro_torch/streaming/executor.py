@@ -28,12 +28,14 @@ owns buckets block-wise).  Each rank stages its contiguous slice
 
 Either way the watermark is ``pmin``-ed, ``slot_frame`` ``pmax``-ed and
 the drop counters ``psum``-med as per-shard deltas, so every rank holds the
-same replicated values; the emission loop then depends on nothing else and
-needs no collective.  ``step`` returns this rank's shard: panes ``(R, K /
-n)``, results ``(EB, K / n)``, the rest replicated.  ``snapshot`` ring-
-shifts the panes to rank ``i + 1`` (rank ``i``'s backup holds rank
-``i - 1``'s panes) and ``restore`` shifts them back; ``migrate_state``
-re-lays a state out on a mesh that holds, or is held by, this one.
+same replicated values (the same ``psum`` sums the slices' valid events
+for the admission telemetry, which reads it only in ``admissible``); the
+emission loop then depends on nothing else and needs no collective.
+``step`` returns this rank's shard: panes ``(R, K / n)``, results ``(EB,
+K / n)``, the rest replicated.  ``snapshot`` ring-shifts the panes to
+rank ``i + 1`` (rank ``i``'s backup holds rank ``i - 1``'s panes) and
+``restore`` shifts them back; ``migrate_state`` re-lays a state out on a
+mesh that holds, or is held by, this one.
 """
 
 from __future__ import annotations
@@ -146,8 +148,12 @@ class StreamExecutor:
                                    cfg.route_capacity_factor))
         self._loc_spec = dataclasses.replace(spec, n_key_buckets=self.k_loc)
         self._partial: Optional[torch.Tensor] = None
-        # telemetry for the adaptive receive window
+        # telemetry for the adaptive receive window; on a mesh the step's
+        # events are the psum of the slices' counts, a device scalar read
+        # only when admissible() takes the rate
         self._processed_since_ack = 0
+        self._processed_on_device = None if mesh is None else torch.zeros(
+            (), dtype=torch.int64, device=self.device)
         self._last_ack = time.monotonic()
         self._receive_window = cfg.batch_size * WINDOW_FILL_FACTOR
         # emission-loop telemetry: rounds run and host syncs they cost
@@ -167,17 +173,23 @@ class StreamExecutor:
         return window_state_init(self._loc_spec, device=self.device)
 
     # ------------------------------------------------------------ steps --
-    def _replicate_counters(self, state, late0, conflict0,
+    def _replicate_counters(self, state, late0, conflict0, valid,
                             extra_conflict=None) -> None:
         """The drop counters as replicated sums: each shard's delta since
-        the step began, ``psum``-med, added to the step's start value."""
+        the step began, ``psum``-med, added to the step's start value.  The
+        same ``psum`` sums the slices' valid events (``valid`` is this
+        rank's slice) into the admission telemetry: the global batch's
+        count, as the reference takes it before sharding (executor.py:
+        316)."""
         conflict = state["dropped_conflict"] - conflict0
         if extra_conflict is not None:
             conflict = conflict + extra_conflict
-        deltas = torch.stack([state["dropped_late"] - late0, conflict])
+        deltas = torch.stack([state["dropped_late"] - late0, conflict,
+                              valid.sum(dtype=torch.int32)])
         coll.psum(self.transport, deltas)
         state["dropped_late"].copy_(late0 + deltas[0])
         state["dropped_conflict"].copy_(conflict0 + deltas[1])
+        self._processed_on_device += deltas[2]
 
     def _step_reduce(self, state, batch):
         """executor.py:118-173: accumulate this rank's slice into zeroed
@@ -197,7 +209,7 @@ class StreamExecutor:
                    batch.get("wm"))
         coll.pmin(tr, state["watermark"])
         state["panes"] += coll.psum_scatter(tr, partial, dim=1)
-        self._replicate_counters(state, late0, conflict0)
+        self._replicate_counters(state, late0, conflict0, batch["valid"])
         coll.pmax(tr, state["slot_frame"])
         return emit(self._loc_spec, state)
 
@@ -231,28 +243,31 @@ class StreamExecutor:
                                                    device=wm.device))
         state["watermark"].copy_(wm)
         coll.pmax(tr, state["slot_frame"])
-        self._replicate_counters(state, late0, conflict0, pack.n_overflow)
+        self._replicate_counters(state, late0, conflict0, valid,
+                                 pack.n_overflow)
         return emit(self._loc_spec, state)
 
     def step(self, state, batch, valid_count: Optional[int] = None):
         """One step on ``batch`` (tensors on this executor's device, e.g.
         from :meth:`stage_batch`; on a mesh, this rank's slice); updates
-        ``state`` in place and returns ``(state, out)``.  Pass
-        ``valid_count`` (host-side event count, known at staging time) to
-        spare the admission telemetry a sync."""
+        ``state`` in place and returns ``(state, out)``.  On one device,
+        pass ``valid_count`` (host-side event count, known at staging time)
+        to spare the admission telemetry a sync.  On a mesh the telemetry
+        takes the psum of the slices' counts whatever ``valid_count`` says
+        (no rank knows the other slices' counts on the host)."""
         self._require_shard()
         if batch["ts"].device != self.device:
             raise ValueError(f"batch on {batch['ts'].device}, executor on "
                              f"{self.device}: stage it with stage_batch")
         if self.mesh is None:
             state, out = window_step(self.cfg.window, state, batch)
+            if valid_count is None:
+                valid_count = int(batch["valid"].sum())
+            self._processed_since_ack += valid_count
         elif self.cfg.exchange == "route":
             state, out = self._step_route(state, batch)
         else:
             state, out = self._step_reduce(state, batch)
-        if valid_count is None:
-            valid_count = int(batch["valid"].sum())
-        self._processed_since_ack += valid_count
         self.emit_rounds += out["rounds"]
         self.host_syncs += out["host_syncs"]
         return state, out
@@ -267,9 +282,11 @@ class StreamExecutor:
         replicated.  On ``cuda`` each field is copied from pinned host
         memory with ``non_blocking=True`` on the current stream (a field
         already pinned is not copied again on the host).  Returns
-        ``(device_batch, valid_count)``, the count of the events staged,
-        taken on the host before the transfer so the hot loop never syncs
-        for it (the reference's executor.py:301-305 and :317).
+        ``(device_batch, valid_count)``: the count of the valid events in
+        the batch it was given (the whole global batch's, as the
+        reference's executor.py:316 counts before sharding; a slice's when
+        given a slice), taken on the host before the transfer so the hot
+        loop never syncs for it.
         """
         self._require_shard()
         lo = self.rank * self.b_loc
@@ -279,6 +296,8 @@ class StreamExecutor:
                 staged[k] = None
                 continue
             t = _to_host_tensor(v)
+            if k == "valid":
+                count = int(t.sum())
             if self.mesh is not None and k in EVENT_FIELDS:
                 if t.shape[0] == self.cfg.batch_size:
                     t = t[lo:lo + self.b_loc]
@@ -287,8 +306,6 @@ class StreamExecutor:
                         f"{k} has {t.shape[0]} rows: expected the global "
                         f"batch ({self.cfg.batch_size}) or this rank's "
                         f"slice ({self.b_loc})")
-            if k == "valid":
-                count = int(t.sum())
             if self.device.type == "cuda":
                 if not t.is_pinned():
                     t = t.pin_memory()
@@ -411,6 +428,9 @@ class StreamExecutor:
     def admissible(self) -> int:
         now = time.monotonic()
         if now - self._last_ack >= ACK_INTERVAL_S:
+            if self._processed_on_device is not None:
+                self._processed_since_ack += int(self._processed_on_device)
+                self._processed_on_device.zero_()
             rate = self._processed_since_ack
             if rate > 0:
                 target = rate * WINDOW_FILL_FACTOR

@@ -531,6 +531,120 @@ def test_server_on_cuda_matches_cpu(cuda):
     assert on_card == drain("cpu")[0]
 
 
+# -- the engine path: q5(placement="device") through the host engine ---------
+
+def _engine_q5(device, placement, n_nodes=1, kill_at_result=None):
+    """tests/test_device_window.py's _run_q5 stream through the port's
+    JetCluster: the sorted result set and the device processors."""
+    from repro_torch.core import (CollectorSink, DeviceWindowProcessor,
+                                  GUARANTEE_EXACTLY_ONCE, GUARANTEE_NONE,
+                                  JetCluster, JobConfig,
+                                  PacedGeneratorSource, VirtualClock)
+    from repro_torch.core.engine import JOB_COMPLETED
+    from repro_torch.nexmark import queries
+    gen = NexmarkGenerator(rate=60_000, n_keys=40)
+    cluster = JetCluster(n_nodes=n_nodes, cooperative_threads=2,
+                         clock=VirtualClock(auto_step=0.001))
+    out = []
+    p = queries.q5(
+        lambda: PacedGeneratorSource(gen, rate=60_000, max_events=12_000),
+        lambda: CollectorSink(out), window_ms=100, slide_ms=20,
+        placement=placement,
+        device=dict(n_key_buckets=64, batch_size=256, device=device))
+    job = cluster.submit(p.to_dag(), JobConfig(
+        processing_guarantee=GUARANTEE_NONE if kill_at_result is None
+        else GUARANTEE_EXACTLY_ONCE, snapshot_interval_s=0.02))
+    killed = False
+    while job.status != JOB_COMPLETED:
+        cluster.step()
+        if (kill_at_result is not None and not killed
+                and len(out) >= kill_at_result and job.snapshots_taken > 0):
+            cluster.kill_node(cluster.node_ids[-1])
+            killed = True
+    assert killed == (kill_at_result is not None)
+    procs = [t.processor for t in job.execution.tasklets
+             if isinstance(t.processor, DeviceWindowProcessor)]
+    return sorted(set((ev.ts, ev.key, ev.value.window_end, ev.value.value)
+                      for ev in out)), procs
+
+
+def test_engine_q5_device_on_card_equals_host(cuda):
+    """Device placement on the card gives host placement's results, one
+    accumulate launch a device step (the warm-up step included), and
+    nothing falls back to the CPU."""
+    host, _ = _engine_q5(cuda, "host")
+    before = accumulate_.launches
+    got, procs = _engine_q5(cuda, "device")
+    assert got == host and len(got) > 0
+    assert procs and all(p.executor.device.type == "cuda" for p in procs)
+    assert all(p.state["panes"].is_cuda for p in procs)
+    steps = sum(p._steps for p in procs) + len(procs)
+    assert accumulate_.launches - before == steps
+    assert sum(p.late_dropped + p.conflict_dropped for p in procs) == 0
+
+
+def test_engine_q5_restores_on_card_through_kill_node(cuda):
+    """Exactly-once through a node kill: the restore builds the window
+    state on the card (finish_snapshot_restore), and the output equals
+    the run without a failure."""
+    base, _ = _engine_q5(cuda, "device", n_nodes=2)
+    got, procs = _engine_q5(cuda, "device", n_nodes=2, kill_at_result=30)
+    assert got == base and len(base) > 0
+    assert procs and all(p.state["panes"].is_cuda for p in procs)
+
+
+def test_device_window_restore_on_card_equals_cpu(cuda):
+    """The same snapshot entries restored on the card and on the CPU give
+    the same state (ints and counts exactly), on the card's tensors, and
+    the same results after."""
+    from repro_torch.core import DeviceWindowProcessor, EventBlock, Watermark
+    from repro_torch.core.processor import Inbox, Outbox, ProcessorContext
+    from repro_torch.core.window import SlidingWindowDef, counting
+
+    def make(device, index=0):
+        proc = DeviceWindowProcessor(
+            SlidingWindowDef(100, 20), counting(), n_key_buckets=16,
+            batch_size=32, max_windows_per_step=4, ring_margin=2,
+            device=device)
+        box = Outbox(batch_limit=1_000_000)
+        proc.init(box, ProcessorContext("q5.device", index, index, 1, 0, 1,
+                                        ()))
+        return proc, box
+
+    def feed(proc, ts, keys):
+        inbox = Inbox()
+        inbox.add(EventBlock(np.asarray(ts, np.int64),
+                             np.asarray(keys, np.int64)))
+        proc.process(0, inbox)
+
+    rng = np.random.RandomState(7)
+    src, box = make(cuda)
+    feed(src, np.sort(rng.randint(0, 200, 150)), rng.randint(0, 40, 150))
+    while not src.try_process_watermark(Watermark(150)):
+        pass
+    feed(src, np.sort(rng.randint(160, 300, 40)), rng.randint(0, 40, 40))
+    assert src.save_to_snapshot()
+    entries = list(box.snapshot_queue)
+    states, results = {}, {}
+    for device in (cuda, torch.device("cpu")):
+        proc, out = make(device, index=1)
+        proc.restore_from_snapshot(entries)
+        proc.finish_snapshot_restore()
+        assert all(v.device.type == device.type for v in proc.state.values())
+        # copies: the steps below update the state in place
+        states[device.type] = {k: v.cpu().clone().numpy()
+                               for k, v in proc.state.items()}
+        while not proc.try_process_watermark(Watermark(400)):
+            pass
+        assert proc.complete()
+        results[device.type] = [(ev.ts, ev.key, ev.value.value)
+                                for ev in out.drain()]
+    for k, v in states["cpu"].items():
+        np.testing.assert_array_equal(states["cuda"][k], v, err_msg=k)
+    assert states["cuda"]["panes"].any()
+    assert results["cuda"] == results["cpu"] and results["cpu"]
+
+
 # -- route_counts, route_offsets, route_pack -----------------------------------
 
 def _pids(n, p, seed, device, lo=0, hi=None):

@@ -44,7 +44,10 @@ def test_no_jax_or_reference_import_in_source(path):
 def test_importing_every_module_loads_no_jax_or_reference():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         [str(PORT)], prefix="repro_torch."))
-    assert "repro_torch.streaming.executor" in modules
+    for name in ("repro_torch.streaming.executor",
+                 "repro_torch.core.device_window", "repro_torch.core.engine",
+                 "repro_torch.nexmark.queries"):
+        assert name in modules, name
     script = textwrap.dedent(f"""
         import importlib, sys
         for name in ["repro_torch"] + {modules!r}:
@@ -52,6 +55,10 @@ def test_importing_every_module_loads_no_jax_or_reference():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
+        # importing the host engine creates no CUDA context (a later
+        # multiprocess backend forks its workers after import)
+        import torch
+        assert not torch.cuda.is_initialized()
         print("CLEAN", len({modules!r}))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -59,3 +66,18 @@ def test_importing_every_module_loads_no_jax_or_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "CLEAN" in proc.stdout
+
+
+@pytest.mark.parametrize("tree", ["src/repro_torch", "src/repro"])
+def test_jetlint_finds_nothing(tree):
+    """The engine's contract checker (``python -m repro.analysis``, the
+    reference's tool, run on its own in a subprocess) reports 0 findings
+    over the port's copies and over the reference: snapshot completeness
+    (the bridge's ``EPHEMERAL_STATE``), aliasing, hot-path blocking and
+    the rest."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro.analysis", tree],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "jetlint: 0 finding(s)" in proc.stdout, proc.stdout

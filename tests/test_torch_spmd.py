@@ -154,6 +154,24 @@ SCENARIO_CODE = textwrap.dedent('''
         return out
 
 
+    def _admit():
+        """64 rows a batch on 4 shards (16 a slice): rows 0-39 valid
+        first (slices of 16, 16, 8 and 0 events), then prefixes and
+        scattered rows of other lengths; the admission telemetry must
+        count the whole batch, not a rank's slice."""
+        rng = np.random.RandomState(5)
+        B, out = 64, []
+        for i, n_valid in enumerate((40, 64, 0, 17, 52, 64, 23)):
+            ts = (i * 10 + np.sort(rng.randint(0, 10, B))).astype(np.int32)
+            valid = np.arange(B) < n_valid if i % 2 == 0 else \
+                rng.permutation(np.arange(B) < n_valid)
+            out.append({"ts": ts,
+                        "key": rng.randint(0, 32, B).astype(np.int32),
+                        "value": np.ones(B, np.float32), "valid": valid,
+                        "wm": _wm(-1)})
+        return out + _flush(B, 500, 4)
+
+
     SPMD_SPEC = dict(size_ms=60, slide_ms=10, n_key_buckets=64,
                      max_windows_per_step=8, ring_margin=10)
     SMALL = dict(size_ms=40, slide_ms=10, n_key_buckets=32,
@@ -184,6 +202,12 @@ SCENARIO_CODE = textwrap.dedent('''
                             B=32, batches=_elastic, exact=True, split=6),
         "migrate_8_4": dict(ranks=(8, 4), exchange="reduce", spec=SPMD_SPEC,
                             B=32, batches=_elastic, exact=True, split=6),
+        # staged with stage_batch from the global batch; every step records
+        # the count it returned and admissible() with the ack interval past
+        "admit_reduce": dict(ranks=4, exchange="reduce", spec=SMALL, B=64,
+                             batches=_admit, exact=True, admit=True),
+        "admit_route": dict(ranks=4, exchange="route", spec=SMALL, B=64,
+                            batches=_admit, exact=True, admit=True),
         # the JAX package's spmd_reduce state after 10 steps, continued in
         # the port from step 10 (held against the JAX run's later steps)
         "jax_state": dict(ranks=8, exchange="reduce", spec=SPMD_SPEC, B=32,
@@ -217,10 +241,17 @@ JAX_SCRIPT = textwrap.dedent('''
     MESHES = {n: make_smoke_mesh((n,), ("data",)) for n in (4, 8)}
 
 
-    def run_steps(ex, state, batches, first, rec):
+    def run_steps(ex, state, batches, first, rec, admit=False):
         for s, b in enumerate(batches, first):
-            state, out = ex.step(state, {k: jnp.asarray(v)
-                                         for k, v in b.items()})
+            if admit:
+                staged, count = ex.stage_batch(b)
+                state, out = ex.step(state, staged, valid_count=count)
+                ex._last_ack -= 1.0                 # the ack interval past
+                rec[f"count/{s}"] = np.asarray(count)
+                rec[f"admit/{s}"] = np.asarray(ex.admissible())
+            else:
+                state, out = ex.step(state, {k: jnp.asarray(v)
+                                             for k, v in b.items()})
             for k in OUT_KEYS:
                 rec[f"{k}/{s}"] = np.asarray(out[k])
             for k in STATE_KEYS:
@@ -245,7 +276,8 @@ JAX_SCRIPT = textwrap.dedent('''
         else:
             ex = StreamExecutor(cfg, mesh=MESHES[sc["ranks"]])
             at = sc.get("snapshot", len(batches))
-            state = run_steps(ex, ex.init_state(), batches[:at], 0, rec)
+            state = run_steps(ex, ex.init_state(), batches[:at], 0, rec,
+                              admit=sc.get("admit", False))
             if at < len(batches):
                 # snapshot mid-stream, then run on from the restored state
                 backup = ex.snapshot(state)
@@ -302,11 +334,15 @@ TORCH_SCRIPT = textwrap.dedent('''
     executor_module.emit = _counting_emit
 
 
-    def run_steps(ex, state, batches, first, rec):
+    def run_steps(ex, state, batches, first, rec, admit=False):
         CURRENT["ex"] = ex
         for s, b in enumerate(batches, first):
             staged, count = ex.stage_batch(b)
             state, out = ex.step(state, staged, valid_count=count)
+            if admit:
+                ex._last_ack -= 1.0                 # the ack interval past
+                rec[f"count/{s}"] = np.asarray(count)
+                rec[f"admit/{s}"] = np.asarray(ex.admissible())
             for k in OUT_KEYS:
                 rec[f"{k}/{s}"] = out[k].numpy().copy()
             for k in ("rows", "rounds"):
@@ -359,7 +395,8 @@ TORCH_SCRIPT = textwrap.dedent('''
                 else:
                     state = ex.init_state()
                 at = sc.get("snapshot", len(batches))
-                state = run_steps(ex, state, batches[first:at], first, rec)
+                state = run_steps(ex, state, batches[first:at], first, rec,
+                                  admit=sc.get("admit", False))
                 if at < len(batches):
                     # snapshot mid-stream, then run on from the restored
                     # state; the live state must not move meanwhile
@@ -609,3 +646,19 @@ def test_out_of_range_keys_differ_between_plans_as_in_jax(runs):
         np.testing.assert_array_equal(got, jax[f"panes/{last - 6}"])
         finals[name] = got
     assert not np.array_equal(finals["oob_reduce"], finals["oob_route"])
+
+
+@pytest.mark.parametrize("name", ["admit_reduce", "admit_route"])
+def test_admission_counts_the_global_batch_as_in_jax(runs, name):
+    """``stage_batch``'s count and ``admissible()`` (the paper's §3.3
+    receive window) on every rank equal the JAX package's for the same
+    global batches: the whole batch is counted, not a rank's slice."""
+    jax, ranks = runs.load(name)
+    steps = _held_steps(name, jax, ranks)
+    assert int(jax["count/0"]) == 40            # rows 0-39 of 64 valid
+    for s in steps:
+        for rec in _members(ranks, s):
+            assert int(rec[f"count/{s}"]) == int(jax[f"count/{s}"]), s
+            assert int(rec[f"admit/{s}"]) == int(jax[f"admit/{s}"]), s
+    windows = {int(jax[f"admit/{s}"]) for s in steps}
+    assert len(windows) > 2                     # the window moved
