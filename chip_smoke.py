@@ -8,18 +8,23 @@ CUDA card and the CUDA toolkit:
 
 ``python3 chip_smoke.py --ranks`` runs phases 1, 2 and 9 alone (on a
 host with 4 cards: the ranks over NCCL, a card each); ``python3
-chip_smoke.py --engine`` runs phases 1, 2 and 10 alone.
+chip_smoke.py --engine`` runs phases 1, 2 and 10 alone; ``python3
+chip_smoke.py --faults`` runs phases 1, 2 and 12 alone.
 
-It drives four paths of the port: device-tier NEXMark Q5 on one card
+It drives five paths of the port: device-tier NEXMark Q5 on one card
 (``window_agg``'s library: one fused ``accumulate`` launch a step), LM
 serving (``decode_attention``), Q5 across 4 ranks under the route
 exchange (one ``route_pack`` cluster launch and one ``accumulate`` a rank
-a step), and the paper's main path: ``queries.q5(placement="device")``
+a step), the paper's main path: ``queries.q5(placement="device")``
 through the port's host engine into its ``DeviceWindowProcessor`` (one
-``accumulate`` a device step).  The ``window_agg`` op, ``route_counts``
+``accumulate`` a device step), and that path through seeded faults, a
+durable snapshot chain and a cold start (one ``accumulate`` a device
+step, the replays included).  The ``window_agg`` op, ``route_counts``
 and ``route_offsets`` are held in phases 3 and 11 as the TPU kernels'
-counterparts and launch on no path.  Phases, in order; any failure ends
-the run with a non-zero exit and no result line:
+counterparts and launch on no path.  Phases, in order of number; phase
+12 runs between 10 and 11, before 11's profiler slows every launch
+after it.  Any failure ends the run with a non-zero exit and no result
+line:
 
 1. card: its name and power limit (``nvidia-smi``);
 2. build: every kernel from ``src/repro_torch/kernels/csrc`` with
@@ -75,8 +80,28 @@ the run with a non-zero exit and no result line:
     time by kernel, the device's idle share; Q5 also with the plain
     accumulate) — last, because the profiler slows every launch after
     it;
-12. the numbers line, the kernels line, the card line, and last the result
-    line ``{"ok": true, "device": {...}}``.
+12. fault tolerance: (a) phase 10 (a)'s stream with device placement on
+    two nodes, exactly-once, a durable snapshot chain and its output
+    through a transactional and an idempotent sink into an external
+    collector, through ``ChaosSchedule.from_seed`` for 3 seeds (kill,
+    raise and the three corruptions of the chain head): each equal to the
+    clean run and to host placement, every result delivered once; then
+    the coordinator dies and a fresh cluster cold-starts the job from the
+    chain onto the card.  (b) Phase 10 (b)'s configuration (event time
+    cut to 3 s), exactly-once with a 1 s snapshot interval and a durable
+    chain, through a seeded kill after the first committed snapshot, a
+    flipped byte in the chain head, then the coordinator's death and a
+    cold start that must fall back past the corrupted head: every count
+    equal to the numpy oracle, no drops; it prints each snapshot's build,
+    spill and bytes, each restore's seconds and the recovery gaps.  (c)
+    ``backend="mp"``, host placement, 4 worker processes, in a subprocess
+    that cannot see the card: tests/test_chaos.py's stream and (b)'s
+    stream cut to one frame, each clean and through a seeded SIGKILL of a
+    worker, equal to the in-process run, no ring left; and
+    ``q5(placement="device")`` on ``mp`` refused;
+
+then the numbers line, the kernels line, the card line, and last the
+result line ``{"ok": true, "device": {...}}``.
 
 Before each path runs, the launch counts of its kernels are set to 0 (in
 each rank's process for the 4-rank path); they are read just after.
@@ -90,8 +115,12 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import multiprocessing
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -109,7 +138,10 @@ from repro_torch.core import (  # noqa: E402
     CollectorSink, DeviceWindowProcessor, GUARANTEE_EXACTLY_ONCE,
     GUARANTEE_NONE, JetCluster, JobConfig, PacedGeneratorSource, Processor,
     VirtualClock, WallClock)
-from repro_torch.core.engine import JOB_COMPLETED  # noqa: E402
+from repro_torch.core import JOB_FAILED, Job, RestartPolicy  # noqa: E402
+from repro_torch.core.engine import (  # noqa: E402
+    JOB_COMPLETED, ExecutionContext)
+from repro_torch.core.shm_ring import RING_NAME_PREFIX  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.kernels import _build, decode_attn  # noqa: E402
@@ -127,6 +159,14 @@ from repro_torch.models import lm, transformer  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     params_from_numpy, params_to_numpy)
 from repro_torch.nexmark import NexmarkGenerator, queries  # noqa: E402
+from repro_torch.runtime.worker_proc import (  # noqa: E402
+    MultiprocessBackend)
+from repro_torch.runtime.chaos import (  # noqa: E402
+    CORRUPTION_KINDS, KIND_CORRUPT_FLIP, KIND_KILL, KIND_RAISE,
+    ChaosController, ChaosSchedule, Fault)
+from repro_torch.snapshot import (  # noqa: E402
+    ExternalCollector, IdempotentSink, TransactionalSink)
+from repro_torch.state import DurableSnapshotStore  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
 from repro_torch.streaming import window as stream_window  # noqa: E402
@@ -1705,6 +1745,693 @@ def engine_path(dev) -> dict:
             "paced": engine_paced(dev)}
 
 
+# -- phase 12 ----------------------------------------------------------------
+#: (a): the reference chaos tests' seeds over phase 10 (a)'s stream; the
+#: kinds the in-process backend can express and the three corruptions
+FAULT_SEEDS = (1, 2, 3)
+FAULT_KINDS = (KIND_KILL, KIND_RAISE) + CORRUPTION_KINDS
+FAULT_SNAPSHOT_VIRTUAL_S = 0.02      # phase 10 (a)'s interval
+#: (b): phase 10 (b)'s configuration, event time cut from 15 s to 3 s (the
+#: close-out of ~999 windows x ~10 000 auctions is there whatever the cut)
+FAULT_EVENT_S = 3.0
+FAULT_SNAPSHOT_S = 1.0
+FAULT_B_SEED = 1
+FAULT_DEADLINE_S = 300.0
+#: (c): the multiprocess backend, 2 nodes x 2 cooperative threads = 4
+#: worker processes, in a subprocess that cannot see the card
+MP_NODES, MP_THREADS = 2, 2
+#: tests/test_chaos.py's stream (40 auctions, window 100 / slide 20); the
+#: SIGKILL lands after the first committed snapshot, as there
+MP_REF = dict(rate=60_000, n_keys=40, events=48_000, window_ms=100,
+              slide_ms=20, snapshot_s=0.1, after_snapshot=True)
+#: (b)'s stream cut to its first 10 ms frame: the host plan ships every
+#: result of the close-out (~999 windows x ~880 auctions) through the
+#: pipes.  The close-out runs inside the windows' completion, so no
+#: barrier aligns before it ends: the SIGKILL lands mid close-out with no
+#: snapshot committed, and the job heals by replaying from the start.  A
+#: worker's close-out slices can outlast the supervisor's default 5 s
+#: heartbeat deadline (on a loaded 8-core host a replay read one as hung),
+#: so this stream's workers get 30 s
+MP_PAPER = dict(rate=ENGINE_RATE, n_keys=N_AUCTIONS, events=1_000,
+                window_ms=WINDOW_MS, slide_ms=SLIDE_MS, snapshot_s=0.2,
+                after_snapshot=False, heartbeat_timeout_s=30.0)
+MP_SEED = 1
+MP_RUN_DEADLINE_S = 180.0
+MP_TIMEOUT_S = 600
+
+
+class DeviceSteps:
+    """Every ``DeviceWindowProcessor`` a run built, across restarts and
+    cold starts, held so its device steps can be counted after its
+    execution was torn down: each made one warm-up step in ``init`` and
+    ``_steps`` since."""
+
+    def __init__(self):
+        self.procs: dict = {}
+
+    def see(self, job) -> None:
+        if job.execution is not None:
+            for p in device_procs(job):
+                self.procs[id(p)] = p
+
+    def steps(self) -> int:
+        return sum(p._steps + 1 for p in self.procs.values())
+
+    def check(self, launches: dict, what: str) -> int:
+        """One ``accumulate`` launch a device step, nothing else, every
+        processor on the card; returns the steps."""
+        steps = self.steps()
+        if any(p.executor.device.type != "cuda"
+               for p in self.procs.values()):
+            raise AssertionError(f"{what}: a device vertex off the card")
+        others = {k: v for k, v in launches.items() if k != "accumulate"}
+        if launches["accumulate"] != steps or any(others.values()):
+            raise AssertionError(f"{what}: {launches} in {steps} device "
+                                 f"steps")
+        return steps
+
+
+def drive_job(cluster, job, tracker, tick=None, until=None,
+              deadline_s: float = FAULT_DEADLINE_S) -> None:
+    """Step ``cluster`` until ``job`` completes (or ``until()``), ticking
+    the chaos controller after every step."""
+    tracker.see(job)
+    deadline = time.monotonic() + deadline_s
+    while job.status not in (JOB_COMPLETED, JOB_FAILED):
+        if until is not None and until():
+            return
+        if time.monotonic() > deadline:
+            raise AssertionError(f"job stuck in {job.status}: "
+                                 f"{job.recovery_diagnostics()}")
+        cluster.step()
+        tracker.see(job)
+        if tick is not None:
+            tick()
+    if until is not None:
+        raise AssertionError("the job ended before the phase's condition")
+    if job.status != JOB_COMPLETED:
+        raise AssertionError(f"job {job.status}: "
+                             f"{job.recovery_diagnostics()}")
+
+
+def fault_config() -> JobConfig:
+    return JobConfig(processing_guarantee=GUARANTEE_EXACTLY_ONCE,
+                     snapshot_interval_s=FAULT_SNAPSHOT_VIRTUAL_S,
+                     restart_policy=RestartPolicy(max_restarts=8))
+
+
+def reference_q5(dev, sink):
+    """Phase 10 (a)'s Q5 with device placement on ``dev``, writing to
+    ``sink`` (a supplier)."""
+    gen = NexmarkGenerator(rate=EQUIV_RATE, n_keys=40)
+    return queries.q5(
+        lambda: PacedGeneratorSource(gen, rate=EQUIV_RATE,
+                                     max_events=EQUIV_EVENTS),
+        sink, window_ms=100, slide_ms=20, placement="device",
+        device=dict(EQUIV_DEVICE, device=dev))
+
+
+def delivered_once(collector, job) -> set:
+    """The transactional sink's committed output as ``(window_end, key,
+    value)``.  Every result is released once; the one exception the
+    protocol allows is a restore that fell back past a corrupted chain
+    head: epochs the head had released are released again after it (the
+    external system cannot unsee them), and each such result then carries
+    the same value in an epoch at or below the skipped head and in one
+    above it."""
+    epochs: dict = {}
+    for txn, wr in collector.committed:
+        epoch = txn[0] if isinstance(txn[0], int) else float("inf")
+        epochs.setdefault((wr.window_end, wr.key), []).append(
+            (epoch, wr.value))
+    skipped = [s["snapshot_id"] for r in job.recovery_log
+               for s in r["skipped"]]
+    for key, seen in epochs.items():
+        if len({v for _e, v in seen}) != 1:
+            raise AssertionError(f"{key} delivered with values {seen}")
+        if len(seen) > 1 and not (
+                skipped and len(seen) == 2
+                and seen[0][0] <= max(skipped) < seen[1][0]):
+            raise AssertionError(f"{key} delivered {len(seen)} times in "
+                                 f"epochs {[e for e, _v in seen]}")
+    return {(w, k, seen[0][1]) for (w, k), seen in epochs.items()}
+
+
+def reference_fault_run(dev, snap_dir: Path, kind: str, seed=None) -> dict:
+    """One durable exactly-once run of ``reference_q5`` on 2 nodes on a
+    virtual clock, its output through a transactional (``kind="tx"``) or
+    an idempotent sink into an ``ExternalCollector``; with a seed, a
+    ``ChaosSchedule.from_seed`` of ``FAULT_KINDS`` through the controller,
+    whose logical clock is what the sink has delivered."""
+    collector = ExternalCollector()
+    if kind == "tx":
+        sink = lambda: TransactionalSink(collector)            # noqa: E731
+        clock_of = collector.committed
+    else:
+        sink = lambda: IdempotentSink(                         # noqa: E731
+            collector, key_fn=lambda ev: (ev.value.window_end, ev.key))
+        clock_of = collector.kv
+    cluster = JetCluster(n_nodes=2, cooperative_threads=2,
+                         clock=VirtualClock(auto_step=0.001),
+                         snapshot_dir=snap_dir)
+    tracker = DeviceSteps()
+    ctl = None
+    zero_counts()
+    try:
+        job = cluster.submit(reference_q5(dev, sink).to_dag(),
+                             fault_config())
+        if seed is not None:
+            schedule = ChaosSchedule.from_seed(
+                seed, n_faults=len(FAULT_KINDS), total_results=560,
+                kinds=FAULT_KINDS)
+            ctl = ChaosController(cluster, job, clock_of, schedule)
+        drive_job(cluster, job, tracker,
+                  tick=None if ctl is None else ctl.tick)
+    finally:
+        cluster.shutdown()
+    launches = launch_counts()
+    steps = tracker.check(launches, f"(a) seed {seed} {kind}")
+    if kind == "tx":
+        results = delivered_once(collector, job)
+    else:
+        results = {(w, k, wr.value) for (w, k), wr in collector.kv.items()}
+    return {
+        "results": results, "steps": steps,
+        "accumulate_launches": launches["accumulate"],
+        "restarts": job.auto_restarts, "snapshots": job.snapshots_taken,
+        "fallbacks": [(r["restored_snapshot"],
+                       [s["snapshot_id"] for s in r["skipped"]])
+                      for r in job.recovery_log if r["skipped"]],
+        "faults": [] if ctl is None else [
+            {"kind": f.kind, "at": f.at_result, "fired": f.fired,
+             "skipped": f.skipped, "fired_at_result": f.fired_at_result,
+             **({"snapshot": f.params["snapshot_id"]}
+                if "snapshot_id" in f.params else {})}
+            for f in ctl.schedule.faults],
+    }
+
+
+def reference_cold_start(dev, snap_dir: Path) -> dict:
+    """The coordinator dies mid-run (its cluster shut down with the job
+    running); a fresh cluster cold-starts the job from the durable chain
+    (``recover_job``) onto the card.  The collector is the external
+    system: it outlives both."""
+    collector = ExternalCollector()
+    sink = lambda: TransactionalSink(collector)                # noqa: E731
+    tracker = DeviceSteps()
+    zero_counts()
+    cluster = JetCluster(n_nodes=2, cooperative_threads=2,
+                         clock=VirtualClock(auto_step=0.001),
+                         snapshot_dir=snap_dir)
+    try:
+        job = cluster.submit(reference_q5(dev, sink).to_dag(),
+                             fault_config())
+        drive_job(cluster, job, tracker,
+                  until=lambda: job.snapshots_taken >= 2
+                  and len(collector.committed) >= 150)
+        before = len(collector.committed)
+    finally:
+        cluster.shutdown()
+    cluster = JetCluster(n_nodes=2, cooperative_threads=2,
+                         clock=VirtualClock(auto_step=0.001),
+                         snapshot_dir=snap_dir)
+    try:
+        job2 = cluster.recover_job(reference_q5(dev, sink).to_dag())
+        cold = job2.recovery_log[0]
+        if cold["event"] != "cold_start" or not cold["entries"]:
+            raise AssertionError(f"the cold start restored nothing: {cold}")
+        drive_job(cluster, job2, tracker)
+    finally:
+        cluster.shutdown()
+    launches = launch_counts()
+    steps = tracker.check(launches, "(a) cold start")
+    return {"results": delivered_once(collector, job2), "steps": steps,
+            "accumulate_launches": launches["accumulate"],
+            "committed_before_death": before,
+            "restored_snapshot": cold["restored_snapshot"],
+            "restored_entries": cold["entries"], "chain": cold["chain"]}
+
+
+def faults_reference_stream(dev) -> dict:
+    """(a): phase 10 (a)'s stream through seeded faults on the card."""
+    t0 = time.perf_counter()
+    host, _, _ = engine_q5(dev, "host")
+    host = {(w, k, v) for _t, k, w, v in host}
+    res: dict = {"seeds": {}}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        clean = reference_fault_run(dev, Path(tmp) / "clean", "tx")
+        if clean["results"] != host or not host:
+            raise AssertionError(f"device placement delivered "
+                                 f"{len(clean['results'])} results, host "
+                                 f"placement {len(host)}; they differ")
+        launches += clean["accumulate_launches"]
+        for seed in FAULT_SEEDS:
+            for kind in ("tx", "idempotent"):
+                run = reference_fault_run(
+                    dev, Path(tmp) / f"s{seed}{kind}", kind, seed)
+                if run["results"] != host:
+                    raise AssertionError(
+                        f"seed {seed} ({kind} sink): {len(run['results'])} "
+                        f"results differ from the clean run's {len(host)}")
+                if run["restarts"] < 1:
+                    raise AssertionError(f"seed {seed} ({kind}): no fault "
+                                         f"healed: {run['faults']}")
+                launches += run["accumulate_launches"]
+                run.pop("results")
+                res["seeds"][f"{seed}/{kind}"] = run
+                log(f"faults (a): seed {seed}, {kind} sink: equal to the "
+                    f"clean run and to host placement ({len(host)} "
+                    f"results); {json.dumps(run)}")
+        cold = reference_cold_start(dev, Path(tmp) / "cold")
+        if cold["results"] != host:
+            raise AssertionError(f"the cold start delivered "
+                                 f"{len(cold['results'])} results, the clean "
+                                 f"run {len(host)}")
+        launches += cold["accumulate_launches"]
+        cold.pop("results")
+        res["cold_start"] = cold
+        log(f"faults (a): cold start from the chain onto the card: every "
+            f"result delivered once, equal to the clean run; "
+            f"{json.dumps(cold)}")
+    res["results"] = len(host)
+    res["accumulate_launches"] = launches
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"faults (a): {res['wall_s']:.1f} s")
+    return res
+
+
+@contextlib.contextmanager
+def snapshot_probes(dev):
+    """Within the block, time every snapshot's build on the device vertex
+    (``_build_snapshot_entries``: the clone, the copy to the host,
+    ``np.nonzero`` and the Python loop), its spill to disk (the durable
+    store's ``commit``, with the bytes it wrote), every restore's load
+    from the chain (``Job._select_restore_snapshot``: verify and read)
+    and its rebuild onto the card (``ExecutionContext.
+    restore_from_snapshot``, synchronised)."""
+    rec = {"builds": [], "spills": [], "loads": [], "restores": []}
+    build = DeviceWindowProcessor._build_snapshot_entries
+    commit = DurableSnapshotStore.commit
+    select = Job._select_restore_snapshot
+    restore = ExecutionContext.restore_from_snapshot
+
+    def timed_build(self):
+        t = time.perf_counter()
+        entries = build(self)
+        rec["builds"].append({
+            "s": time.perf_counter() - t,
+            "snapshot": getattr(self, "current_snapshot_id", None),
+            "entries": len(entries),
+            "pairs": sum(len(v) for k, v in entries if k[0] == "k")})
+        return entries
+
+    def timed_commit(self, job_id, snapshot_id):
+        t = time.perf_counter()
+        commit(self, job_id, snapshot_id)
+        d = self.snapshot_dir(job_id, snapshot_id)
+        rec["spills"].append({
+            "s": time.perf_counter() - t, "snapshot": snapshot_id,
+            "bytes": sum(f.stat().st_size for f in d.iterdir())})
+
+    def timed_select(self):
+        t = time.perf_counter()
+        got = select(self)
+        rec["loads"].append({"s": time.perf_counter() - t,
+                             "snapshot": got[0]})
+        return got
+
+    def timed_restore(self, snapshot_id):
+        t = time.perf_counter()
+        n = restore(self, snapshot_id)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        rec["restores"].append({"s": time.perf_counter() - t,
+                                "snapshot": snapshot_id, "entries": n})
+        return n
+
+    DeviceWindowProcessor._build_snapshot_entries = timed_build
+    DurableSnapshotStore.commit = timed_commit
+    Job._select_restore_snapshot = timed_select
+    ExecutionContext.restore_from_snapshot = timed_restore
+    try:
+        yield rec
+    finally:
+        DeviceWindowProcessor._build_snapshot_entries = build
+        DurableSnapshotStore.commit = commit
+        Job._select_restore_snapshot = select
+        ExecutionContext.restore_from_snapshot = restore
+
+
+def paper_q5(dev, gen, total: int, cols: dict, clock):
+    return queries.q5(
+        lambda: PacedGeneratorSource(gen, rate=ENGINE_RATE, max_events=total),
+        lambda: ResultColumns(clock, cols), window_ms=WINDOW_MS,
+        slide_ms=SLIDE_MS, placement="device",
+        device=dict(n_key_buckets=K, batch_size=ENGINE_BATCH, device=dev))
+
+
+def recovery_gap(flat: np.ndarray, at: np.ndarray, n0: int, t0: float):
+    """From a fault at wall time ``t0`` with ``n0`` results in the sink:
+    the seconds to the first result after it, to the first result not
+    delivered before it, and the results replayed in between."""
+    if flat.size <= n0:
+        raise AssertionError("no result after the fault")
+    seen = np.isin(flat[n0:], np.unique(flat[:n0]))
+    new = int(np.argmin(seen)) if not seen.all() else None
+    return {"results_at_fault": n0,
+            "to_first_result_s": float(at[n0] - t0),
+            "to_first_new_result_s": None if new is None
+            else float(at[n0 + new] - t0),
+            "replayed": int(seen.sum()) if new is None else new}
+
+
+def faults_paper_shape(dev, event_s: float = FAULT_EVENT_S) -> dict:
+    """(b): phase 10 (b)'s configuration through a seeded kill after the
+    first committed snapshot, a flipped byte in the chain head, then the
+    coordinator's death and a cold start on a fresh cluster, which must
+    fall back past the corrupted head.  Every (window, auction) count
+    equals ``engine_oracle``'s, with no drops."""
+    total = int(ENGINE_RATE * event_s)
+    gen = NexmarkGenerator(rate=ENGINE_RATE, n_keys=N_AUCTIONS)
+    t_phase = time.perf_counter()
+    oracle = engine_oracle(gen, total)
+    # results of the windows that close inside the stream (the rest are
+    # the close-out's)
+    last_frame = (total - 1) * 1000 // ENGINE_RATE // SLIDE_MS
+    in_stream = int(np.count_nonzero(oracle[:last_frame]))
+    schedule = ChaosSchedule.from_seed(
+        FAULT_B_SEED, n_faults=1, total_results=in_stream,
+        kinds=(KIND_KILL,), lo_frac=0.1, hi_frac=0.3)
+    schedule.faults.append(Fault(KIND_CORRUPT_FLIP,
+                                 at_result=int(0.8 * in_stream)))
+    log(f"faults (b): {total} events ({event_s} s of event time, cut from "
+        f"{ENGINE_EVENT_S} s), {int(np.count_nonzero(oracle))} results, "
+        f"{in_stream} of them in the stream; faults {schedule.faults}")
+    cols = {"ts": array.array("q"), "key": array.array("q"),
+            "value": array.array("d"), "now": array.array("d"),
+            "count": array.array("q")}
+    tracker = DeviceSteps()
+    res: dict = {"event_s": event_s, "cut_from_event_s": ENGINE_EVENT_S,
+                 "events": total, "snapshot_interval_s": FAULT_SNAPSHOT_S}
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp, \
+            snapshot_probes(dev) as rec:
+        snap_dir = Path(tmp) / "chain"
+        clock = WallClock()
+        cluster = JetCluster(n_nodes=1, cooperative_threads=1, clock=clock,
+                             snapshot_dir=snap_dir)
+        try:
+            job = cluster.submit(
+                paper_q5(dev, gen, total, cols, clock).to_dag(),
+                JobConfig(processing_guarantee=GUARANTEE_EXACTLY_ONCE,
+                          snapshot_interval_s=FAULT_SNAPSHOT_S,
+                          restart_policy=RestartPolicy(max_restarts=4)))
+            ctl = ChaosController(cluster, job, cols["ts"], schedule)
+            drive_job(cluster, job, tracker, tick=ctl.tick,
+                      until=lambda: schedule.done)
+            chain = cluster.snapshot_store.recovery_chain(job.id)
+            t_death = time.monotonic()
+            n_death = len(cols["ts"])
+            first = {"restarts": job.auto_restarts,
+                     "snapshots": job.snapshots_taken,
+                     "recovery_log": job.recovery_log, "chain": chain}
+        finally:
+            cluster.shutdown()           # the coordinator dies here
+        kill, corrupt = schedule.faults
+        if not (kill.fired and corrupt.fired) or first["restarts"] < 1:
+            raise AssertionError(f"faults {schedule.faults}, {first}")
+        head = corrupt.params["snapshot_id"]
+        if len(chain) < 2 or chain[0] != head:
+            raise AssertionError(f"chain {chain} at the corruption of {head}")
+        clock = WallClock()
+        cluster = JetCluster(n_nodes=1, cooperative_threads=1, clock=clock,
+                             snapshot_dir=snap_dir)
+        try:
+            job2 = cluster.recover_job(
+                paper_q5(dev, gen, total, cols, clock).to_dag())
+            cold = job2.recovery_log[0]
+            drive_job(cluster, job2, tracker)
+        finally:
+            cluster.shutdown()
+        skipped = {s["snapshot_id"]: s["reason"] for s in cold["skipped"]}
+        if (cold["event"] != "cold_start" or head not in skipped
+                or "verification failed" not in skipped[head]
+                or cold["restored_snapshot"] is None
+                or cold["restored_snapshot"] >= head):
+            raise AssertionError(f"the cold start did not fall back past "
+                                 f"the corrupted head {head}: {cold}")
+        if any(p.late_dropped or p.conflict_dropped or p.bucket_collisions
+               for p in device_procs(job2)):
+            raise AssertionError("drops or collisions after the cold start")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    steps = tracker.check(launches, "(b)")
+
+    ts, key = (np.frombuffer(cols[k], np.int64) for k in ("ts", "key"))
+    value = np.frombuffer(cols["value"], np.float64)
+    at = np.repeat(np.frombuffer(cols["now"], np.float64),
+                   np.frombuffer(cols["count"], np.int64))
+    rows = (ts + 1) // SLIDE_MS - 1
+    if rows.min() < 0 or rows.max() >= oracle.shape[0] or \
+            key.min() < 0 or key.max() >= N_AUCTIONS:
+        raise AssertionError("a result outside the oracle's windows")
+    flat = rows * N_AUCTIONS + key
+    got = np.zeros(oracle.size, np.int64)
+    got[flat] = value.astype(np.int64)
+    # a replayed result must repeat its first delivery's value
+    if not np.array_equal(got[flat], value) or \
+            not np.array_equal(got, oracle.ravel()):
+        bad = np.flatnonzero(got != oracle.ravel())
+        raise AssertionError(f"{bad.size} (window, auction) counts differ "
+                             f"from the oracle, e.g. {bad[:5]}")
+    unique = int(np.unique(flat).size)
+    res.update({
+        "results": unique, "delivered": int(flat.size),
+        "replayed": int(flat.size) - unique,
+        "device_steps": steps, "accumulate_launches": launches["accumulate"],
+        "accumulate_per_device_step": launches["accumulate"] / steps,
+        "kill": {"at": kill.at_result, "fired_at_result": kill.fired_at_result,
+                 **recovery_gap(flat, at, kill.fired_at_result,
+                                kill.fired_at)},
+        "corrupt_flip": {"at": corrupt.at_result, "snapshot": head,
+                         "fired_at_result": corrupt.fired_at_result},
+        "cold_start": {"restored_snapshot": cold["restored_snapshot"],
+                       "skipped": cold["skipped"], "chain": cold["chain"],
+                       **recovery_gap(flat, at, n_death, t_death)},
+        "first_run": {k: first[k] for k in ("restarts", "snapshots",
+                                             "chain")},
+        "snapshots": rec["builds"], "spills": rec["spills"],
+        "loads": rec["loads"], "restores": rec["restores"],
+        "wall_s": time.perf_counter() - t_phase,
+    })
+    spills = {s["snapshot"]: s for s in rec["spills"]}
+    for b in rec["builds"]:
+        s = spills.get(b["snapshot"])
+        log(f"faults (b): snapshot {b['snapshot']}: {b['entries']} entries "
+            f"({b['pairs']} (frame, count) pairs) built in {b['s']:.4f} s, "
+            + ("never committed" if s is None else
+               f"spilled in {s['s']:.4f} s, {s['bytes']} bytes on disk"))
+    for ld, r in zip(rec["loads"], rec["restores"]):
+        log(f"faults (b): restore of snapshot {r['snapshot']}: chain walk "
+            f"and read {ld['s']:.4f} s, {r['entries']} entries onto the "
+            f"card in {r['s']:.4f} s")
+    log(f"faults (b): recovery after the kill {json.dumps(res['kill'])}; "
+        f"after the cold start {json.dumps(res['cold_start'])}")
+    log(f"faults (b): {len(oracle)} windows x auctions equal the numpy "
+        f"oracle exactly ({unique} results, {res['replayed']} replayed "
+        f"deliveries); no drops or collisions; {steps} device steps, "
+        f"{launches['accumulate']} accumulate launches; "
+        f"{res['wall_s']:.1f} s")
+    return res
+
+
+def mp_run(stream: dict, backend: str, seed=None) -> dict:
+    """Q5 with host placement over ``stream`` on MP_NODES x MP_THREADS,
+    exactly-once: ``inproc`` on a virtual clock, ``mp`` (one process a
+    worker) on the wall clock, with a seeded SIGKILL of one worker where
+    a seed is given.  The deduplicated result set, the late drops and
+    what the run did."""
+    gen = NexmarkGenerator(rate=stream["rate"], n_keys=stream["n_keys"])
+    clock = None
+    if backend == "inproc":
+        clock = VirtualClock(auto_step=0.001)
+    elif "heartbeat_timeout_s" in stream:
+        backend = MultiprocessBackend(
+            heartbeat_timeout_s=stream["heartbeat_timeout_s"])
+    cluster = JetCluster(n_nodes=MP_NODES, cooperative_threads=MP_THREADS,
+                         backend=backend, clock=clock)
+    out: list = []
+    p = queries.q5(
+        lambda: PacedGeneratorSource(gen, rate=stream["rate"],
+                                     max_events=stream["events"]),
+        lambda: CollectorSink(out), window_ms=stream["window_ms"],
+        slide_ms=stream["slide_ms"])
+    info: dict = {}
+    t0 = time.perf_counter()
+    try:
+        job = cluster.submit(p.to_dag(), JobConfig(
+            processing_guarantee=GUARANTEE_EXACTLY_ONCE,
+            snapshot_interval_s=stream["snapshot_s"],
+            restart_policy=RestartPolicy(max_restarts=4)))
+        ctl = None
+        if seed is not None:
+            ctl = ChaosController(cluster, job, out, ChaosSchedule.from_seed(
+                seed, n_faults=1, total_results=stream["results"],
+                kinds=(KIND_KILL,), lo_frac=0.05, hi_frac=0.3),
+                require_snapshot=stream["after_snapshot"])
+        data = job.execution.backend_data
+        info["workers"] = len(data.get("workers", {}))
+        info["rings"] = [r.name for r in data.get("rings", ())]
+        deadline = time.monotonic() + MP_RUN_DEADLINE_S
+        while job.status not in (JOB_COMPLETED, JOB_FAILED):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{cluster.backend.name} job stuck: "
+                                     f"{job.recovery_diagnostics()}")
+            cluster.step()
+            if ctl is not None:
+                ctl.tick()
+            if cluster.backend.name == "mp":
+                info["rings"] += [r.name for r in job.execution.backend_data
+                                  .get("rings", ()) if r.name not in
+                                  info["rings"]]
+        if job.status != JOB_COMPLETED:
+            raise AssertionError(f"{cluster.backend.name} job {job.status}: "
+                                 f"{job.recovery_diagnostics()}")
+        drops = sum(getattr(t.processor, "late_dropped", 0)
+                    for t in job.execution.tasklets)
+        if ctl is not None:
+            fault = ctl.schedule.faults[0]
+            if not fault.fired or job.auto_restarts < 1:
+                raise AssertionError(f"the SIGKILL did not heal: "
+                                     f"{ctl.schedule.faults} {job.failures}")
+            info["fault"] = {"at": fault.at_result,
+                             "fired_at_result": fault.fired_at_result,
+                             "failures": [f.kind for f in job.failures],
+                             "restarts": job.auto_restarts,
+                             "restored": [r["restored_snapshot"]
+                                          for r in job.recovery_log
+                                          if r["event"] == "restore"]}
+    finally:
+        cluster.shutdown()
+    left = sorted(set(info.get("rings", ())) & set(os.listdir("/dev/shm")))
+    if left:
+        raise AssertionError(f"rings left in /dev/shm: {left}")
+    results = {(ev.ts, ev.key, ev.value.window_end, ev.value.value)
+               for ev in out}
+    info.update({"results": len(results), "delivered": len(out),
+                 "drops": drops, "wall_s": time.perf_counter() - t0,
+                 "rings": len(info.get("rings", ()))})
+    return {"set": results, "drops": drops, "info": info}
+
+
+def mp_faults_child(out_path: Path) -> int:
+    """``--mp-faults PATH`` (started by ``mp_faults``, with the card
+    hidden): (c)'s runs; writes their summary to PATH."""
+    if torch.cuda.is_available():
+        raise AssertionError("the mp phase must run with the card hidden")
+    res = {}
+    for name, stream in (("reference_stream", MP_REF),
+                         ("paper_stream", MP_PAPER)):
+        clean = mp_run(stream, "inproc")
+        stream = dict(stream, results=len(clean["set"]))
+        got = {"inproc": clean["info"]}
+        for label, seed in (("mp", None), ("mp_sigkill", MP_SEED)):
+            run = mp_run(stream, "mp", seed)
+            if run["set"] != clean["set"] or run["drops"] != clean["drops"]:
+                raise AssertionError(
+                    f"{name} {label}: {run['info']['results']} results, "
+                    f"{run['drops']} drops; in process "
+                    f"{len(clean['set'])}, {clean['drops']}")
+            if run["info"]["workers"] != MP_NODES * MP_THREADS:
+                raise AssertionError(f"{run['info']['workers']} workers")
+            got[label] = run["info"]
+        res[name] = got
+        print(f"{name}: mp and mp through a SIGKILL equal in process "
+              f"({len(clean['set'])} results); {json.dumps(got)}",
+              flush=True)
+    left = [n for n in os.listdir("/dev/shm")
+            if n.startswith(RING_NAME_PREFIX)]
+    if left:
+        raise AssertionError(f"rings with the port's prefix left: {left}")
+    res["cuda_initialized"] = torch.cuda.is_initialized()
+    if res["cuda_initialized"]:
+        raise AssertionError("the mp phase initialised CUDA")
+    out_path.write_text(json.dumps(res))
+    return 0
+
+
+def mp_refuses_device(dev) -> str:
+    """``q5(placement="device")`` on ``backend="mp"`` is refused before any
+    worker starts (no fork, so this process's CUDA context is safe)."""
+    cluster = JetCluster(n_nodes=1, cooperative_threads=2, backend="mp")
+    p = queries.q5(lambda: PacedGeneratorSource(
+                       NexmarkGenerator(rate=EQUIV_RATE, n_keys=40),
+                       rate=EQUIV_RATE, max_events=EQUIV_EVENTS),
+                   lambda: CollectorSink([]), window_ms=100, slide_ms=20,
+                   placement="device", device=dict(EQUIV_DEVICE, device=dev))
+    try:
+        cluster.submit(p.to_dag(), JobConfig())
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("mp ran a device vertex")
+    finally:
+        cluster.shutdown()
+    if multiprocessing.active_children():
+        raise AssertionError("a worker process started")
+    mine = f"{RING_NAME_PREFIX}{os.getpid()}_"
+    left = [n for n in os.listdir("/dev/shm") if n.startswith(mine)]
+    if left:
+        raise AssertionError(f"the refused job left rings: {left}")
+    return refused
+
+
+def mp_faults(dev) -> dict:
+    """(c): the mp runs in a subprocess started fresh with the card hidden
+    (its forked workers inherit no CUDA context, and any CUDA call there
+    raises), its process group killed at the time limit; then the refusal
+    of a device vertex, here."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "mp.json"
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mp-faults",
+             str(out)], env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=MP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"the mp phase took over {MP_TIMEOUT_S} s")
+        for line in stdout.splitlines():
+            log(f"faults (c) | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the mp phase failed ({proc.returncode}):"
+                                 f"\n{stderr[-4000:]}")
+        res = json.loads(out.read_text())
+    res["device_on_mp_refused"] = mp_refuses_device(dev)
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"faults (c): {MP_NODES * MP_THREADS} worker processes equal in "
+        f"process through a SIGKILL, no ring left, CUDA never initialised "
+        f"there; device placement on mp refused: "
+        f"{res['device_on_mp_refused']!r}; {res['wall_s']:.1f} s")
+    return res
+
+
+def faults_path(dev) -> dict:
+    """Phase 12: (a), (b), then (c)."""
+    t0 = time.perf_counter()
+    res = {"reference_stream": faults_reference_stream(dev),
+           "paper_shape": faults_paper_shape(dev),
+           "mp": mp_faults(dev)}
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"faults: phase 12 in {res['wall_s']:.1f} s")
+    return res
+
+
 # -- phase 11 ----------------------------------------------------------------
 def route_timing_cases(dev):
     """Each route kernel at the 4-rank path's shape (rank 0's slice of a Q5
@@ -2165,7 +2892,18 @@ def engine_only(name: str, smi: str) -> int:
     return 0
 
 
+def faults_only(name: str, smi: str) -> int:
+    """``--faults``: phase 12 alone, after the card and the build."""
+    print(json.dumps({"faults": faults_path(torch.device("cuda"))}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--mp-faults"] and len(sys.argv) == 3:
+        return mp_faults_child(Path(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2177,6 +2915,8 @@ def main() -> int:
         return ranks_only(name, smi)
     if sys.argv[1:] == ["--engine"]:
         return engine_only(name, smi)
+    if sys.argv[1:] == ["--faults"]:
+        return faults_only(name, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -2202,11 +2942,16 @@ def main() -> int:
     for entry in routes:
         entry["launches"] = ranks["route"]["launches"][entry["name"]]
     engine = engine_path(dev)
+    # phase 12 before phase 11: the profiler slows every launch after it
+    faults = faults_path(dev)
     acc["launches_by_path"] = {
         "q5_run_stream": path["launches"]["accumulate"],
         "q5_ranks_route": ranks["route"]["launches"]["accumulate"],
         "engine_equivalence": engine["equivalence"]["accumulate_launches"],
-        "engine_paced": engine["paced"]["accumulate_launches"]}
+        "engine_paced": engine["paced"]["accumulate_launches"],
+        "faults_reference_stream":
+            faults["reference_stream"]["accumulate_launches"],
+        "faults_paper_shape": faults["paper_shape"]["accumulate_launches"]}
     acc["launches"] = sum(acc["launches_by_path"].values())
     # phase 11: event timings first, then the profiler
     ab = q5_wall_ab(dev)
@@ -2233,7 +2978,8 @@ def main() -> int:
                       "serve": serve, "serve_tf32": tf32,
                       "serve_card_vs_cpu": vs_cpu,
                       "serve_profile": serve_prof, "q5_ranks": ranks,
-                      "engine": engine, "total_s": total}))
+                      "engine": engine, "faults": faults,
+                      "total_s": total}))
     print(json.dumps({"kernels": [window, acc, attn, *routes]}))
     print(smi)
     # the run uses one card, whatever the host holds

@@ -4,8 +4,9 @@ The layout mirrors ``src/repro/`` so that each module's counterpart is
 easy to find.  The port imports ``torch`` and numpy, never ``jax`` and
 nothing of ``repro``: what it needs of a framework-free reference module
 it keeps as its own copy (the host engine: ``core/`` but
-``device_window.py``, ``state/``, ``runtime/supervisor.py``,
-``nexmark/``; ``models/config.py``, ``configs/``).
+``device_window.py``, ``state/``, ``snapshot/``,
+``runtime/{supervisor,worker_proc,chaos}.py``, ``nexmark/``;
+``models/config.py``, ``configs/``).
 
 Ported so far: the paper's main path, ``nexmark.queries.q5(...,
 placement="device")`` through the host engine (``core.JetCluster``, its

@@ -4,9 +4,10 @@ watermarks, windows, Chandy-Lamport snapshots and backpressure.
 Copies of ``repro/core/*`` (the host engine is plain Python and numpy),
 but for ``device_window.py``, the port's own bridge onto
 ``repro_torch.streaming``: ``Pipeline.window(w).aggregate(op,
-placement="device")`` lowers onto it.  The multiprocess backend
-(``core/shm_ring.py`` with ``runtime/worker_proc.py``) is not ported yet:
-``make_backend("mp")`` raises ``NotImplementedError``."""
+placement="device")`` lowers onto it.  ``backend="mp"`` runs one OS
+process a (node, cooperative thread) over ``core/shm_ring.py``'s rings
+(``runtime/worker_proc.py``) and refuses device vertices, as the
+reference does."""
 
 from .backend import (ExecutionBackend, InProcessBackend, WorkerFailure,
                       make_backend)

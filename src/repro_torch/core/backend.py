@@ -3,18 +3,17 @@
 The engine core (:mod:`repro_torch.core.engine`) is substrate-agnostic:
 it plans executions, owns job lifecycle and snapshot *policy*, and
 delegates every "how does work actually run" decision to an
-:class:`ExecutionBackend`.  The reference ships two backends; the port
-has the first so far:
+:class:`ExecutionBackend`.  Two backends ship:
 
 * :class:`InProcessBackend` (default) — the paper-faithful cooperative
   model with every worker stepped by one driver thread.  All queues are
   in-process (:class:`~repro_torch.core.queues.SPSCQueue` locally,
   :class:`~repro_torch.core.backpressure.NetworkLink` across simulated nodes).
-* the reference's ``runtime/worker_proc.py::MultiprocessBackend`` — each
+* :class:`~repro_torch.runtime.worker_proc.MultiprocessBackend` — each
   (node, cooperative-thread) pair becomes a real OS process; edges that
   cross a process boundary become shared-memory EventBlock rings
-  (``core/shm_ring.py``).  Not ported yet: ``make_backend("mp")`` raises
-  ``NotImplementedError`` (ROADMAP.md §1, queue item 7).
+  (:class:`~repro_torch.core.shm_ring.ShmRing`).  It refuses jobs with
+  a device-offloaded vertex, as the reference does.
 
 The backend contract
 ====================
@@ -87,7 +86,7 @@ authoritative — never completed with partial state and never allowed to
 stall the job waiting for an ack that cannot come.
 
 ``inject_fault(execution, kind, ...)`` is the seeded chaos layer's seam
-(the reference's ``runtime/chaos.py``): backends translate an abstract
+(:mod:`repro_torch.runtime.chaos`): backends translate an abstract
 fault kind ("kill", "stall", "raise", "drop_ack", "delay_ack") into the
 most real failure they can produce (SIGKILL/SIGSTOP a worker process; plant an
 exception inside a cooperative slice).  Returns False for kinds the
@@ -328,8 +327,7 @@ def make_backend(spec) -> ExecutionBackend:
     if spec in (None, "inproc"):
         return InProcessBackend()
     if spec == "mp":
-        raise NotImplementedError(
-            "the multiprocess backend (core/shm_ring.py, runtime/"
-            "worker_proc.py) is not ported yet: ROADMAP.md §1, queue item 7")
+        from ..runtime.worker_proc import MultiprocessBackend
+        return MultiprocessBackend()
     raise ValueError(f"unknown execution backend {spec!r} "
                      "(expected 'inproc', 'mp', or an ExecutionBackend)")

@@ -71,6 +71,19 @@ Where the port differs from the reference in mechanism (not in result):
 * **State is updated in place** by the step, so the snapshot goes
   through ``executor.snapshot`` (a clone) and a restore builds fresh
   tensors on the executor's device.
+* **The emission frontier reaches every restoring instance.**  The
+  reference saves an instance's watermark, emission cursor and top
+  timestamp only in its ``("meta", idx)`` entry, which lands on one
+  partition (a hash of the key, random across processes), so an instance
+  of the restoring job may receive none: it restarts its emission from
+  ``-1`` and re-fires windows whose first frames were already evicted,
+  with partial counts.  The port also saves that frontier under every
+  partition as ``("frontier", p)`` entries (the idiom of the sources'
+  replicated offsets) and restores each instance to the largest it
+  receives; the ``("meta", idx)`` entry still carries the drop counters,
+  which sum over the instances that receive one.  With no partition
+  count in the context (a standalone harness) nothing is replicated and
+  the entries are the reference's.
 """
 
 from __future__ import annotations
@@ -176,6 +189,7 @@ class DeviceWindowProcessor(Processor):
         self._snap_entries: Optional[List[Tuple[Any, Any]]] = None
         self._restore_frames: Dict[Any, Dict[int, float]] = {}
         self._restore_meta: List[Dict] = []
+        self._restore_frontier: List[Dict] = []
 
     # ------------------------------------------------------------ set-up --
     def init(self, outbox, ctx) -> None:
@@ -491,19 +505,25 @@ class DeviceWindowProcessor(Processor):
             per_key.setdefault(key, []).append((f, float(panes[s, b])))
         for key, frames in per_key.items():
             entries.append((("k", key), frames))
-        entries.append((("meta", self.ctx.global_index), {
-            "watermark": int(host["watermark"]),
-            "next_emit": int(host["next_emit"]),
-            "dropped_late": int(host["dropped_late"]),
-            "dropped_conflict": int(host["dropped_conflict"]),
-            "top_ts": self._top_ts,
-        }))
+        frontier = {"watermark": int(host["watermark"]),
+                    "next_emit": int(host["next_emit"]),
+                    "top_ts": self._top_ts}
+        entries.append((("meta", self.ctx.global_index), dict(
+            frontier, dropped_late=int(host["dropped_late"]),
+            dropped_conflict=int(host["dropped_conflict"]))))
+        # the frontier again under every partition, so every instance of
+        # the restoring topology receives it (module docstring)
+        n = self.ctx.partition_count
+        for p in (range(n) if n else ()):
+            entries.append((("frontier", p), frontier))
         return entries
 
     def snapshot_partition(self, skey):
         from .dag import PARTITION_COUNT
         if skey[0] == "k":
             return hash(skey[1]) % PARTITION_COUNT
+        if skey[0] == "frontier":
+            return skey[1]
         return None
 
     def restore_from_snapshot(self, items) -> None:
@@ -514,9 +534,12 @@ class DeviceWindowProcessor(Processor):
                     frames[f] = frames.get(f, 0.0) + v
             elif skey[0] == "meta":
                 self._restore_meta.append(val)
+            elif skey[0] == "frontier":
+                self._restore_frontier.append(val)
 
     def finish_snapshot_restore(self) -> None:
-        if not self._restore_frames and not self._restore_meta:
+        if not (self._restore_frames or self._restore_meta
+                or self._restore_frontier):
             return
         self._ensure_executor()
         spec = self._spec
@@ -546,6 +569,7 @@ class DeviceWindowProcessor(Processor):
                 else:
                     dropped_conflict += 1
         meta = self._restore_meta
+        front = meta + self._restore_frontier
         dev = self.executor.device
 
         def scalar(v):
@@ -557,17 +581,18 @@ class DeviceWindowProcessor(Processor):
             "panes": torch.from_numpy(panes).to(dev),
             "slot_frame": torch.from_numpy(slot_frame).to(dev),
             "watermark": scalar(
-                max((m["watermark"] for m in meta), default=-1)),
+                max((m["watermark"] for m in front), default=-1)),
             "next_emit": scalar(
-                max((m["next_emit"] for m in meta), default=-1)),
+                max((m["next_emit"] for m in front), default=-1)),
             "dropped_late": scalar(sum(m["dropped_late"] for m in meta)),
             "dropped_conflict": scalar(
                 sum(m["dropped_conflict"] for m in meta)
                 + dropped_conflict),
         }
-        self._top_ts = max((m["top_ts"] for m in meta), default=-1)
+        self._top_ts = max((m["top_ts"] for m in front), default=-1)
         self._restore_frames = {}
         self._restore_meta = []
+        self._restore_frontier = []
 
     # ---------------------------------------------------------- telemetry --
     @property

@@ -16,10 +16,11 @@ How the planned execution actually runs is delegated to a pluggable
 contract).  The default ``backend="inproc"`` drives the whole cluster
 cooperatively from :meth:`JetCluster.step` on the calling thread — the
 paper's model with every simulated core multiplexed onto one real one.
-In the reference ``backend="mp"`` runs each (node, cooperative-thread) pair
-as a real OS process with shared-memory EventBlock rings between them; the
-port has not ported that backend yet (ROADMAP.md §1, queue item 7), and
-``backend="mp"`` raises ``NotImplementedError``.
+``backend="mp"`` runs each (node, cooperative-thread) pair as a real OS
+process with shared-memory EventBlock rings between them
+(:mod:`repro_torch.runtime.worker_proc`), so the cooperative model maps
+onto as many cores as the machine offers; it refuses device-offloaded
+vertices.
 """
 
 from __future__ import annotations
@@ -635,8 +636,8 @@ class JetNode:
 
 class JetCluster:
     """A Jet cluster; execution substrate selected by ``backend``
-    (``"inproc"`` — cooperative simulation on this thread; ``"mp"``, one
-    OS process per (node, cooperative thread), is not ported yet; or a custom
+    (``"inproc"`` — cooperative simulation on this thread, ``"mp"`` — one
+    OS process per (node, cooperative thread), or a custom
     :class:`~repro_torch.core.backend.ExecutionBackend` instance)."""
 
     def __init__(self, n_nodes: int = 1, cooperative_threads: int = 2,

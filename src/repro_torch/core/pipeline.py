@@ -14,7 +14,6 @@ The planner performs Jet's two signature optimizations:
 
 from __future__ import annotations
 
-import itertools
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from .dag import DAG, Edge, Routing
@@ -32,13 +31,15 @@ from .window import (AccumulateByFrameProcessor, AggregateOperation,
 
 
 class _Stage:
-    _ids = itertools.count()
-
     def __init__(self, pipeline: "Pipeline", kind: str, name: str,
                  upstreams: List["_Stage"], params: Dict[str, Any]):
         self.pipeline = pipeline
         self.kind = kind
-        self.name = f"{name}-{next(_Stage._ids)}"
+        # numbered within its pipeline (the reference counts across the
+        # process): a pipeline rebuilt the same way gets the same vertex
+        # names, which is what a restore from a durable chain matches
+        # its entries by (JetCluster.recover_job)
+        self.name = f"{name}-{len(pipeline.stages)}"
         self.upstreams = upstreams
         self.params = params
         self.downstream_count = 0

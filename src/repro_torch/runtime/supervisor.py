@@ -2,8 +2,8 @@
 did not schedule.
 
 :class:`WorkerSupervisor` watches one execution attempt's worker
-processes (the reference's ``runtime/worker_proc.py``, not ported yet)
-through two independent signals and classifies every uncooperative death:
+processes (``runtime/worker_proc.py``) through two independent signals
+and classifies every uncooperative death:
 
 * **exitcodes** — a worker process that is gone without having reported
   its data plane DONE is abnormal.  A negative exitcode means the OS
@@ -12,7 +12,7 @@ through two independent signals and classifies every uncooperative death:
   processor raised (:data:`FAILURE_ERROR` — usually preceded by the
   child's ``("error", traceback)`` message, which carries the detail).
 * **heartbeats** — children send a tiny ``("hb",)`` record on their
-  control pipe every ``runtime/worker_proc.py::_HEARTBEAT_S``
+  control pipe every :data:`~repro_torch.runtime.worker_proc._HEARTBEAT_S`
   seconds, even while parked idle or blocked post-DONE.  A live process
   whose heartbeat is older than ``heartbeat_timeout_s`` is **hung**
   (wedged in a slice, SIGSTOP'd, deadlocked on a ring): the supervisor

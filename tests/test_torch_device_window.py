@@ -360,3 +360,54 @@ def test_convert_reads_only_the_valid_prefix():
     proc._emit_buf.clear()
     proc._convert(dict(out, rows=0))
     assert not proc._emit_buf
+
+
+def test_frontier_reaches_every_restoring_instance():
+    """ROADMAP.md §3, F2: in a cluster the processor saves its emission
+    frontier under every partition as well as in its ``("meta", idx)``
+    entry, so an instance that restores keys but receives no meta entry
+    still resumes at the saver's watermark and emission cursor (the
+    reference's restarts that instance from -1 and re-fires windows whose
+    first frames were evicted).  Without a partition count the entries
+    are the reference's."""
+    from repro_torch.core.dag import PARTITION_COUNT
+    script = _script()
+    m, proc, outbox = _make_proc("repro_torch")
+    proc.ctx.partition_count = PARTITION_COUNT
+    core = m["core"]
+    for op, *args in script[:3]:
+        if op == "block":
+            inbox = m["processor"].Inbox()
+            inbox.add(core.EventBlock(np.asarray(args[0], np.int64),
+                                      np.asarray(args[1], np.int64)))
+            proc.process(0, inbox)
+        else:
+            _forward(core, proc, args[0])
+    assert proc.save_to_snapshot()
+    entries = list(outbox.snapshot_queue)
+    meta = [v for k, v in entries if k[0] == "meta"]
+    front = {k[1]: v for k, v in entries if k[0] == "frontier"}
+    assert len(meta) == 1 and sorted(front) == list(range(PARTITION_COUNT))
+    assert all(proc.snapshot_partition(("frontier", p)) == p for p in front)
+    want = {k: meta[0][k] for k in ("watermark", "next_emit", "top_ts")}
+    assert want["next_emit"] > 0 and all(v == want for v in front.values())
+    # the reference's entries are these without the frontier
+    ref, ref_box, _ = _drive("repro", script[:3])
+    assert ref.save_to_snapshot()
+    assert [e for e in entries if e[0][0] != "frontier"] == \
+        list(ref_box.snapshot_queue)
+    # an instance owning a few keys and partitions, but not the meta
+    keys = [e for e in entries if e[0][0] == "k"][:5]
+    mine = keys + [(("frontier", p), front[p]) for p in (3, 70)]
+    _m, other, _ = _make_proc("repro_torch", index=1)
+    other.restore_from_snapshot(mine)
+    other.finish_snapshot_restore()
+    st = _state_numpy(other.state)
+    assert int(st["watermark"]) == want["watermark"]
+    assert int(st["next_emit"]) == want["next_emit"]
+    assert other._top_ts == want["top_ts"]
+    assert int(st["dropped_late"]) == 0         # counters ride the meta
+    _m, bare, _ = _make_proc("repro_torch", index=2)
+    bare.restore_from_snapshot(keys)
+    bare.finish_snapshot_restore()
+    assert int(_state_numpy(bare.state)["next_emit"]) == -1

@@ -214,9 +214,3 @@ def test_allowed_lateness_refires_and_late_side_output_equal_reference():
     assert got_late == ref_late
     refired = len(ref_out) - len({(w, k) for _t, k, w, _v in ref_out})
     assert refired > 0 and len(ref_late) > 0    # both paths ran
-
-
-def test_mp_backend_is_not_ported_yet():
-    from repro_torch.core import make_backend
-    with pytest.raises(NotImplementedError, match="queue item 7"):
-        make_backend("mp")

@@ -46,7 +46,10 @@ def test_importing_every_module_loads_no_jax_or_reference():
         [str(PORT)], prefix="repro_torch."))
     for name in ("repro_torch.streaming.executor",
                  "repro_torch.core.device_window", "repro_torch.core.engine",
-                 "repro_torch.nexmark.queries"):
+                 "repro_torch.nexmark.queries", "repro_torch.core.shm_ring",
+                 "repro_torch.runtime.worker_proc",
+                 "repro_torch.runtime.chaos", "repro_torch.snapshot.sinks",
+                 "repro_torch.snapshot.active_active"):
         assert name in modules, name
     script = textwrap.dedent(f"""
         import importlib, sys
@@ -55,7 +58,7 @@ def test_importing_every_module_loads_no_jax_or_reference():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        # importing the host engine creates no CUDA context (a later
+        # importing the host engine creates no CUDA context (the
         # multiprocess backend forks its workers after import)
         import torch
         assert not torch.cuda.is_initialized()
