@@ -9,9 +9,10 @@ CUDA card and the CUDA toolkit:
 ``python3 chip_smoke.py --ranks`` runs phases 1, 2 and 9 alone (on a
 host with 4 cards: the ranks over NCCL, a card each); ``python3
 chip_smoke.py --engine`` runs phases 1, 2 and 10 alone; ``python3
-chip_smoke.py --faults`` runs phases 1, 2 and 12 alone.
+chip_smoke.py --faults`` runs phases 1, 2 and 12 alone; ``python3
+chip_smoke.py --lm`` runs phases 1, 2 and 13 alone.
 
-It drives five paths of the port: device-tier NEXMark Q5 on one card
+It drives six paths of the port: device-tier NEXMark Q5 on one card
 (``window_agg``'s library: one fused ``accumulate`` launch a step), LM
 serving (``decode_attention``), Q5 across 4 ranks under the route
 exchange (one ``route_pack`` cluster launch and one ``accumulate`` a rank
@@ -19,12 +20,14 @@ a step), the paper's main path: ``queries.q5(placement="device")``
 through the port's host engine into its ``DeviceWindowProcessor`` (one
 ``accumulate`` a device step), and that path through seeded faults, a
 durable snapshot chain and a cold start (one ``accumulate`` a device
-step, the replays included).  The ``window_agg`` op, ``route_counts``
-and ``route_offsets`` are held in phases 3 and 11 as the TPU kernels'
-counterparts and launch on no path.  Phases, in order of number; phase
-12 runs between 10 and 11, before 11's profiler slows every launch
-after it.  Any failure ends the run with a non-zero exit and no result
-line:
+step, the replays included), and every LM family of the registry
+(``decode_attention`` on every attention layer's decode, the rolling and
+the linear sliding-window caches and the int8 cache included).  The
+``window_agg`` op, ``route_counts`` and ``route_offsets`` are held in
+phases 3 and 11 as the TPU kernels' counterparts and launch on no path.
+Phases, in order of number; phases 12 and 13 run between 10 and 11,
+before 11's profiler slows every launch after it.  Any failure ends
+the run with a non-zero exit and no result line:
 
 1. card: its name and power limit (``nvidia-smi``);
 2. build: every kernel from ``src/repro_torch/kernels/csrc`` with
@@ -32,7 +35,9 @@ line:
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    card, at its path's shapes and at edge shapes (the fused accumulate
    with the whole window state compared; route_pack also over memory
-   poisoned first, and as the route plan calls it, without positions);
+   poisoned first, and as the route plan calls it, without positions;
+   decode_attention also with its lower bound, the linear sliding-window
+   cache's, at the serve shapes and the edges);
 4. Q5 path: device-tier NEXMark Q5 through ``StreamExecutor.run_stream``
    at the paper's configuration (10 s window sliding by 10 ms over 10 000
    auctions, 16 384 key buckets, 65 536 events per step), held exactly
@@ -99,6 +104,23 @@ line:
     stream cut to one frame, each clean and through a seeded SIGKILL of a
     worker, equal to the in-process run, no ring left; and
     ``q5(placement="device")`` on ``mp`` refused;
+13. LM families, bf16, random weights from a seed, each through a
+    ``BatchedLMServer`` of 8 slots fed from ``transformer.prefill``: (a)
+    mixtral-8x7b at full width cut to 8 of its 32 layers (its 93 GB of
+    experts do not fit one card), a 4 608-token prefill (past the 4 096
+    window: the chunked path and the rolled cache; layer 0's chunked
+    attention against ``_sdpa_full``), 64 decode steps on the rolling
+    cache; (b) rwkv6-7b whole, 512 + 128; (c) jamba-v0.1-52b cut to one
+    of its 4 groups, 512 + 64; each with ``decode_attention`` once an
+    attention layer a step and one more step through the kernel against
+    the plain version; (d) qwen2-1.5b in float32 with an int8 cache
+    beside a float32 one (the reference's test's types), 256
+    teacher-forced steps within the reference's criterion, then a linear
+    sliding-window cache decoded past its window, kernel against plain
+    within 1e-3; (e) mixtral and rwkv6 at full width cut to 2 layers,
+    float32, card against CPU, 8 teacher-forced steps, and rwkv6's
+    prefill then a decode step against a prefill one token longer, on the
+    card;
 
 then the numbers line, the kernels line, the card line, and last the
 result line ``{"ok": true, "device": {...}}``.
@@ -114,6 +136,7 @@ import array
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import multiprocessing
 import os
@@ -155,7 +178,9 @@ from repro_torch.kernels.window_agg import (  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     make_data_mesh, spawn_ranks)
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import lm, transformer  # noqa: E402
+from repro_torch.models.layers import apply_norm, apply_rope  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     params_from_numpy, params_to_numpy)
 from repro_torch.nexmark import NexmarkGenerator, queries  # noqa: E402
@@ -637,12 +662,51 @@ def check_decode_attention(dev) -> dict:
     torch.cuda.empty_cache()
     decode_attention_twice(dev)
     errs[f32] = max(errs[f32], decode_attention_mixed_views(dev))
+    for dt, err in decode_attention_lower_bound(dev).items():
+        errs[dt] = max(errs[dt], err)
     decode_attention_rejects(dev)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
             "replaces": "src/repro/kernels/decode_attn.py:65",
             "max_abs_err": errs[f32], "max_abs_err_bf16": errs[bf16],
             "max_abs_err_f16": errs[f16]}
+
+
+def decode_attention_lower_bound(dev) -> dict:
+    """The lower bound ``lo`` (the linear sliding-window cache) against the
+    plain version at the serve shape (8 slots, qwen2's 12 over 2 heads,
+    mixtral's 32 over 8, dh 128, S = 1024 and 4096) and at the edges:
+    ``lo = 0``, ``lo = pos``, inside the first 64-row tile, inside the last
+    one, and with ``pos >= S``; each within 2e-5 and one launch.  Returns
+    the largest error a type."""
+    rng = np.random.RandomState(5)
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for b, h, hk, s, pos, lo in [(8, 12, 2, 1024, 1000, 0),
+                                     (8, 12, 2, 1024, 1000, 1000),
+                                     (8, 12, 2, 1024, 1000, 5),
+                                     (8, 12, 2, 1024, 1000, 970),
+                                     (8, 12, 2, 1024, 1000, 937),
+                                     (8, 12, 2, 1024, 1500, 1023),
+                                     (8, 32, 8, 4096, 4000, 3937)]:
+            q = torch.from_numpy(rng.randn(b, h, 128).astype(np.float32)).to(
+                dev, dt)
+            k, v = (cache_view(rng, b, s, hk, 128, dt, dev)
+                    for _ in range(2))
+            before = decode_attention.launches
+            got = decode_attention(q, k, v, pos, lo)
+            torch.cuda.synchronize()
+            if decode_attention.launches != before + 1:
+                raise AssertionError("lower bound: the kernel did not launch")
+            want = decode_attention_plain(q, k, v, pos, lo)
+            torch.testing.assert_close(got, want, rtol=ATTN_TOL,
+                                       atol=ATTN_TOL)
+            err = float((got - want).abs().max())
+            errs[dt] = max(errs.get(dt, 0.0), err)
+            log(f"decode_attention lower bound {str(dt)[6:]} q "
+                f"{tuple(q.shape)} S {s} pos {pos} lo {lo}: "
+                f"max_abs_err={err:.3g} ok")
+    return errs
 
 
 def decode_block(dtype, dh, idx):
@@ -2432,6 +2496,379 @@ def faults_path(dev) -> dict:
     return res
 
 
+# -- phase 13 ----------------------------------------------------------------
+# every LM family of the registry on the card, bf16, random weights from a
+# seed; the cuts keep full width and drop depth to fit one card's 80 GB
+LM_SLOTS = 8
+#: mixtral-8x7b: 32 layers of 2.9 GB of experts (93 GB) cut to 8 (24 GB);
+#: a prompt past the 4 096 window takes the chunked path and the SWA roll
+MIXTRAL_LAYERS, MIXTRAL_PROMPT, MIXTRAL_DECODE = 8, 4608, 64
+#: rwkv6-7b whole (15 GB)
+RWKV_PROMPT, RWKV_DECODE = 512, 128
+#: jamba-v0.1-52b (104 GB) cut to one of its 4 groups: 7 Mamba layers and
+#: one attention layer, 4 of the 8 with 16 experts (26 GB)
+JAMBA_LAYERS, JAMBA_PROMPT, JAMBA_DECODE = 8, 512, 64
+#: qwen2-1.5b with an int8 cache against the bf16 cache, teacher-forced
+INT8_STEPS = 256
+#: the linear sliding-window cache: a window of 64 over a prefill of 60
+#: tokens padded to 256 rows, decoded past the window
+SWA_WINDOW, SWA_PROMPT, SWA_ROWS, SWA_DECODE = 64, 60, 256, 16
+#: card against CPU: mixtral and rwkv6 at full width cut to 2 layers
+LM_CPU_LAYERS, LM_CPU_STEPS = 2, 8
+#: the reference's criterion for an int8 cache against a float one
+#: (tests/test_prefill_decode_continuity.py:100): the largest logit error
+#: under 0.15 of the logits' standard deviation; also held by bf16 paths
+#: against their plain versions, where the difference is a kernel's f32
+#: sum order rounded to bf16 at each layer
+SPREAD_TOL = 0.15
+#: _sdpa_chunked against _sdpa_full in bf16: both round the probabilities
+#: to bf16 before the PV product (the chunked path unnormalised, a chunk at
+#: a time) and the product to bf16 (0.4 % each)
+CHUNK_TOL = dict(rtol=3e-2, atol=3e-2)
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Within the block, the model's decode attention runs the plain
+    version on the card: the yardstick of phase 13's comparisons, never a
+    path's run."""
+    kernel = attn_mod.decode_attention
+    attn_mod.decode_attention = decode_attention_plain
+    try:
+        yield
+    finally:
+        attn_mod.decode_attention = kernel
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_server(dev, cfg, seed: int, max_seq: int):
+    """Random float32 weights from ``seed`` on the card, handed to a bf16
+    ``BatchedLMServer`` of LM_SLOTS slots (which casts them, keeping the
+    router, A_log, D, w0 and u in float32)."""
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), torch.float32, device=dev)
+    server = BatchedLMServer(cfg, params, batch_slots=LM_SLOTS,
+                             max_seq=max_seq, compute_dtype=torch.bfloat16,
+                             device=dev)
+    kept = {n: str(p.dtype)[6:] for n, p in server.params.named_parameters()
+            if n.rsplit(".", 1)[-1] in transformer.F32_TENSORS}
+    if any(v != "float32" for v in kept.values()):
+        raise AssertionError(f"float32 tensors cast: {kept}")
+    return server, len(kept)
+
+
+def spread_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """max |got - want| over std(want), held under SPREAD_TOL; finite."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    rel = float((got - want).abs().max() / want.float().std())
+    if not rel < SPREAD_TOL:
+        raise AssertionError(f"{what}: logit error {rel:.3g} of the spread "
+                             f">= {SPREAD_TOL}")
+    return rel
+
+
+def clone_cache(cache):
+    return [{k: t.clone() for k, t in c.items()} for c in cache]
+
+
+def prefill_into_server(server, cfg, prompts):
+    """``transformer.prefill`` of ``prompts`` (LM_SLOTS, S) on the card,
+    its cache copied into the server's (the attention layers' rows: the
+    server's, so a rolled window is not padded), the server at position S
+    and one request a slot whose prompt is the slot's greedy token after
+    the prefill: the first server step decodes it at position S."""
+    rows = max((c["k"].shape[1] for c in server.cache if "k" in c),
+               default=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(cfg, server.params, tokens=prompts,
+                                        compute_dtype=torch.bfloat16,
+                                        kv_pad_to=rows)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    for dst, src in zip(server.cache, cache):
+        if dst.keys() != src.keys():
+            raise AssertionError(f"prefill cache {sorted(src)} against "
+                                 f"{sorted(dst)}")
+        for k in dst:
+            if dst[k].shape != src[k].shape:
+                raise AssertionError(f"prefill cache {k} {tuple(src[k].shape)}"
+                                     f" against {tuple(dst[k].shape)}")
+            dst[k].copy_(src[k])
+    first = logits.argmax(-1).tolist()
+    server.pos = prompts.shape[1]
+    return logits, prefill_s, first
+
+
+def lm_family(dev, cfg, prompt_len: int, decode_steps: int, seed: int,
+              check_chunked: bool = False) -> dict:
+    """Phase 13 (a) to (c) for ``cfg``: a bf16 server, a prefill of
+    LM_SLOTS prompts of ``prompt_len`` tokens, ``decode_steps`` server steps
+    on the prefilled cache with the launch counts zeroed just before them,
+    then one more step through the kernel and through the plain version
+    on copies of the cache (logits within SPREAD_TOL of the spread); with
+    ``check_chunked``, layer 0's _sdpa_chunked against _sdpa_full on one
+    prompt."""
+    n_attn = sum(transformer.layer_kinds(cfg, l)[0] == "attn"
+                 for l in range(cfg.n_layers))
+    t0 = time.perf_counter()
+    server, n_f32 = lm_server(dev, cfg, seed,
+                              prompt_len + decode_steps + 8)
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_SLOTS, prompt_len),
+                            generator=g, device=dev)
+    logits, prefill_s, first = prefill_into_server(server, cfg, prompts)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in server.params.parameters())
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "attention_layers": n_attn, "slots": LM_SLOTS,
+           "prompt_len": prompt_len, "decode_steps": decode_steps,
+           "params": sum(p.numel() for p in server.params.parameters()),
+           "weight_gb": weight_bytes / 1e9,
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "float32_tensors_kept": n_f32, "init_s": init_s,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": LM_SLOTS * prompt_len / prefill_s}
+    if check_chunked:
+        bp = server.params.blocks[0]
+        x = server.params.embed[prompts[:1]]
+        q, k, v = attn_mod._project_qkv(bp.mixer, apply_norm(bp.norm1, x,
+                                                             cfg),
+                                        cfg, torch.bfloat16)
+        at = torch.arange(prompt_len, device=dev)
+        q, k = (apply_rope(t, at, cfg.rope_theta) for t in (q, k))
+        chunked = attn_mod._sdpa_chunked(q, k, v, at, at, cfg)
+        full = attn_mod._sdpa_full(q, k, v, at, at, cfg)
+        torch.testing.assert_close(chunked.float(), full.float(),
+                                   **CHUNK_TOL)
+        res["chunked_vs_full_max_abs_err"] = float(
+            (chunked.float() - full.float()).abs().max())
+        del q, k, v, chunked, full, x
+    for i in range(LM_SLOTS):
+        slot = server.free[-1]
+        server.submit(i, [first[slot]], decode_steps)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    step_ms = serve_steps(server, [], decode_steps)
+    wall = time.perf_counter() - t0
+    launches = decode_attention.launches
+    other = {k: v for k, v in launch_counts().items()
+             if k != "decode_attention" and v}
+    if len(step_ms) != decode_steps or server.active:
+        raise AssertionError(f"{cfg.name}: {len(step_ms)} steps, "
+                             f"{len(server.active)} requests left")
+    if launches != n_attn * decode_steps or other:
+        raise AssertionError(f"{cfg.name}: decode_attention launched "
+                             f"{launches} times in {decode_steps} steps of "
+                             f"{n_attn} attention layers (others {other})")
+    toks = np.array([r["out"] for r in server.completed])
+    if toks.shape != (LM_SLOTS, decode_steps) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: completions {toks.shape}, tokens "
+                             f"in [{toks.min()}, {toks.max()}]")
+    res.update({"decode_wall_s": wall, "ms_per_decode_step": wall
+                / decode_steps * 1e3,
+                "step_ms_p50": float(np.percentile(step_ms, 50)),
+                "new_tokens_per_s": LM_SLOTS * decode_steps / wall,
+                "decode_attention_launches": launches,
+                "decode_attention_launches_per_step": launches
+                / decode_steps, "last_pos": server.pos - 1})
+    # one more step, kernel against the plain version, on copies
+    token = server.tokens
+    step = {}
+    for which in ("kernel", "plain"):
+        cache = clone_cache(server.cache)
+        ctx = (plain_decode_attention() if which == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            step[which] = transformer.decode_step(
+                cfg, server.params, cache, token, server.pos,
+                torch.bfloat16)[0]
+        del cache
+    res["kernel_vs_plain_logit_err_of_spread"] = spread_err(
+        step["kernel"], step["plain"], f"{cfg.name} kernel against plain")
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lm {cfg.name}: {json.dumps(res)}")
+    return res, server
+
+
+def rwkv_continuity(cfg, params, dev) -> float:
+    """A prefill of 64 tokens, then one decode step from the state it hands
+    over, against a prefill one token longer, float32 on the card (the
+    reference's continuity test; in bf16 the two orders of rounding part
+    ways through 32 random layers): the largest logit error, held to
+    CPU_TOL."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g, device=dev)
+    _, cache = transformer.prefill(cfg, params, tokens=toks[:, :64],
+                                   compute_dtype=torch.float32)
+    step = transformer.decode_step(cfg, params, cache, toks[:, 64], 64,
+                                   torch.float32)[0]
+    longer = transformer.prefill(cfg, params, tokens=toks,
+                                 compute_dtype=torch.float32)[0]
+    torch.testing.assert_close(step, longer, **CPU_TOL)
+    return float((step - longer).abs().max())
+
+
+def int8_cache(dev) -> dict:
+    """(d): qwen2-1.5b at full width (28 layers), INT8_STEPS teacher-forced
+    steps of LM_SLOTS rows through an int8 cache beside a float cache,
+    held to the reference's criterion every step; then a linear
+    sliding-window cache (window SWA_WINDOW, a prefill padded to SWA_ROWS)
+    decoded past the window, the last step's logits through the kernel's
+    lower bound against the plain version.  float32 compute and a float32
+    cache, as the reference's own test runs it: in bf16 the float cache's
+    own rounding through 28 random layers is of the criterion's size (an
+    H100 run erred 0.158 of the spread at position 0 against the bf16
+    cache)."""
+    cfg = get_config(ARCH)
+    cd = torch.float32
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(5),
+                            cd, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (INT8_STEPS, LM_SLOTS),
+                           generator=g, device=dev).to(torch.int32)
+    caches = {dt: lm.init_cache(cfg, LM_SLOTS, INT8_STEPS, dt, device=dev)
+              for dt in (torch.int8, cd)}
+    worst = 0.0
+    zero_counts()
+    t0 = time.perf_counter()
+    for pos in range(INT8_STEPS):
+        lq = transformer.decode_step(cfg, params, caches[torch.int8],
+                                     tokens[pos], pos, cd)[0]
+        lf = transformer.decode_step(cfg, params, caches[cd], tokens[pos],
+                                     pos, cd)[0]
+        worst = max(worst, spread_err(lq, lf, f"int8 cache at pos {pos}"))
+    wall = time.perf_counter() - t0
+    launches = decode_attention.launches
+    if launches != 2 * cfg.n_layers * INT8_STEPS:
+        raise AssertionError(f"int8: {launches} decode_attention launches")
+    res = {"arch": cfg.name, "steps": INT8_STEPS, "slots": LM_SLOTS,
+           "compute_dtype": "float32",
+           "max_logit_err_of_spread": worst, "wall_s": wall,
+           "decode_attention_launches": launches,
+           "cache_bytes": {str(dt)[6:]: sum(t.numel() * t.element_size()
+                                            for c in caches[dt]
+                                            for t in c.values())
+                           for dt in caches}}
+    del caches
+    swa = dataclasses.replace(cfg, attention="swa", swa_window=SWA_WINDOW)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_SLOTS, SWA_PROMPT),
+                            generator=g, device=dev)
+    _, cache = transformer.prefill(swa, params, tokens=prompts,
+                                   compute_dtype=cd, kv_pad_to=SWA_ROWS)
+    if cache[0]["k"].shape[1] != SWA_ROWS:
+        raise AssertionError("the linear cache was not padded")
+    zero_counts()
+    for pos in range(SWA_PROMPT, SWA_PROMPT + SWA_DECODE):
+        transformer.decode_step(swa, params, cache, tokens[pos], pos, cd)
+    launches = decode_attention.launches
+    pos = SWA_PROMPT + SWA_DECODE
+    lo = pos - SWA_WINDOW + 1
+    kern = transformer.decode_step(swa, params, clone_cache(cache),
+                                   tokens[pos], pos, cd)[0]
+    with plain_decode_attention():
+        plain = transformer.decode_step(swa, params, clone_cache(cache),
+                                        tokens[pos], pos, cd)[0]
+    torch.testing.assert_close(kern, plain, **CPU_TOL)
+    res["linear_swa"] = {
+        "window": SWA_WINDOW, "rows": SWA_ROWS, "prompt": SWA_PROMPT,
+        "pos": pos, "lo": lo, "decode_attention_launches": launches,
+        "kernel_vs_plain_max_abs_logit_err": float(
+            (kern - plain).abs().max())}
+    if launches != cfg.n_layers * SWA_DECODE or lo <= 0:
+        raise AssertionError(f"linear SWA: {launches} launches, lo {lo}")
+    log(f"lm int8 cache and linear SWA: {json.dumps(res)}")
+    return res
+
+
+def lm_card_vs_cpu(dev) -> dict:
+    """(e): mixtral-8x7b and rwkv6-7b at full width cut to LM_CPU_LAYERS
+    layers, float32, the same weights on the card (the kernel) and the CPU
+    (plain versions), LM_CPU_STEPS teacher-forced steps of LM_SLOTS rows:
+    logits within CPU_TOL, as phase 8 holds qwen2; then rwkv6's prefill
+    continuity on the card."""
+    res = {}
+    for arch in ("mixtral-8x7b", "rwkv6-7b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=LM_CPU_LAYERS)
+        card = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            7), torch.float32, device=dev)
+        cpu = params_from_numpy(cfg, params_to_numpy(cfg, card),
+                                device="cpu")
+        tokens = torch.from_numpy(np.random.RandomState(7).randint(
+            0, cfg.vocab_size, (LM_CPU_STEPS, LM_SLOTS)).astype(np.int32))
+        caches = {d: lm.init_cache(cfg, LM_SLOTS, LM_CPU_STEPS,
+                                   torch.float32, device=d)
+                  for d in (dev, "cpu")}
+        err = 0.0
+        t0 = time.perf_counter()
+        for pos in range(LM_CPU_STEPS):
+            lc = transformer.decode_step(cfg, card, caches[dev],
+                                         tokens[pos].to(dev), pos,
+                                         torch.float32)[0].cpu()
+            lh = transformer.decode_step(cfg, cpu, caches["cpu"],
+                                         tokens[pos], pos, torch.float32)[0]
+            torch.testing.assert_close(lc, lh, **CPU_TOL)
+            err = max(err, float((lc - lh).abs().max()))
+        res[arch] = {"layers": LM_CPU_LAYERS, "steps": LM_CPU_STEPS,
+                     "rows": LM_SLOTS, "max_abs_logit_err": err,
+                     "s": time.perf_counter() - t0}
+        if arch == "rwkv6-7b":
+            res[arch]["prefill_continuity_max_abs_logit_err"] = \
+                rwkv_continuity(cfg, card, dev)
+        del card, cpu, caches
+        free_card()
+    log(f"lm card against CPU: logits within rtol=atol=1e-3; "
+        f"{json.dumps(res)}")
+    return res
+
+
+def lm_path(dev) -> dict:
+    """Phase 13: (a) mixtral-8x7b cut to MIXTRAL_LAYERS layers, (b)
+    rwkv6-7b whole, (c) jamba-v0.1-52b cut to one group, (d) qwen2 with an
+    int8 cache and a linear sliding-window cache, (e) card against CPU."""
+    t0 = time.perf_counter()
+    res = {}
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"),
+                                  n_layers=MIXTRAL_LAYERS)
+    res["mixtral"], server = lm_family(dev, mixtral, MIXTRAL_PROMPT,
+                                       MIXTRAL_DECODE, 21,
+                                       check_chunked=True)
+    if server.cache[0]["k"].shape[1] != mixtral.swa_window:
+        raise AssertionError("mixtral's cache is not the rolling window")
+    del server
+    free_card()
+    res["rwkv6"], server = lm_family(dev, get_config("rwkv6-7b"),
+                                     RWKV_PROMPT, RWKV_DECODE, 22)
+    del server
+    free_card()
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                n_layers=JAMBA_LAYERS)
+    res["jamba"], server = lm_family(dev, jamba, JAMBA_PROMPT, JAMBA_DECODE,
+                                     23)
+    del server
+    free_card()
+    res["int8_cache"] = int8_cache(dev)
+    free_card()
+    res["card_vs_cpu"] = lm_card_vs_cpu(dev)
+    res["wall_s"] = time.perf_counter() - t0
+    res["decode_attention_launches"] = sum(
+        res[k]["decode_attention_launches"] for k in
+        ("mixtral", "rwkv6", "jamba", "int8_cache")) + res["int8_cache"][
+        "linear_swa"]["decode_attention_launches"]
+    log(f"lm: phase 13 in {res['wall_s']:.1f} s")
+    return res
+
+
 # -- phase 11 ----------------------------------------------------------------
 def route_timing_cases(dev):
     """Each route kernel at the 4-rank path's shape (rank 0's slice of a Q5
@@ -2901,6 +3338,15 @@ def faults_only(name: str, smi: str) -> int:
     return 0
 
 
+def lm_only(name: str, smi: str) -> int:
+    """``--lm``: phase 13 alone, after the card and the build."""
+    print(json.dumps({"lm": lm_path(torch.device("cuda"))}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mp-faults"] and len(sys.argv) == 3:
         return mp_faults_child(Path(sys.argv[2]))
@@ -2917,6 +3363,8 @@ def main() -> int:
         return engine_only(name, smi)
     if sys.argv[1:] == ["--faults"]:
         return faults_only(name, smi)
+    if sys.argv[1:] == ["--lm"]:
+        return lm_only(name, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -2942,8 +3390,19 @@ def main() -> int:
     for entry in routes:
         entry["launches"] = ranks["route"]["launches"][entry["name"]]
     engine = engine_path(dev)
-    # phase 12 before phase 11: the profiler slows every launch after it
+    # phases 12 and 13 before phase 11: the profiler slows every launch
+    # after it
     faults = faults_path(dev)
+    lms = lm_path(dev)
+    attn["launches_by_path"] = {
+        "serve_qwen2": serve["decode_attention_launches"],
+        "lm_mixtral": lms["mixtral"]["decode_attention_launches"],
+        "lm_rwkv6": lms["rwkv6"]["decode_attention_launches"],
+        "lm_jamba": lms["jamba"]["decode_attention_launches"],
+        "lm_int8_cache": lms["int8_cache"]["decode_attention_launches"],
+        "lm_linear_swa": lms["int8_cache"]["linear_swa"][
+            "decode_attention_launches"]}
+    attn["launches"] = sum(attn["launches_by_path"].values())
     acc["launches_by_path"] = {
         "q5_run_stream": path["launches"]["accumulate"],
         "q5_ranks_route": ranks["route"]["launches"]["accumulate"],
@@ -2978,7 +3437,7 @@ def main() -> int:
                       "serve": serve, "serve_tf32": tf32,
                       "serve_card_vs_cpu": vs_cpu,
                       "serve_profile": serve_prof, "q5_ranks": ranks,
-                      "engine": engine, "faults": faults,
+                      "engine": engine, "faults": faults, "lm": lms,
                       "total_s": total}))
     print(json.dumps({"kernels": [window, acc, attn, *routes]}))
     print(smi)

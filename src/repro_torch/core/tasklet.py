@@ -708,6 +708,13 @@ class ProcessorTasklet:
                 return False
             self._wm_processed = True
             self._flush_outbox()
+        if self._pend_pos < len(self._pend_items) or len(self.outbox):
+            # F6: what the watermark closed must reach its queues first.  On
+            # a partitioned edge one full queue holds back the items for
+            # the others, and a broadcast now would put the watermark ahead
+            # of them on those queues: downstream windows would close
+            # without them (the combine drops such partials unseen)
+            return False
         for c in self.collectors:
             if not c.broadcast(wm):
                 return False

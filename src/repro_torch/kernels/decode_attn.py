@@ -8,9 +8,15 @@ and its oracle (``ref.decode_attention_ref``) in one module:
   each query row attends to the positions ``<= pos`` of its kv head.  It
   returns ``(B, H, dh)`` float32.  k and v may be views with any strides
   as long as the head dimension is contiguous: the model passes its
-  ``(B, S, Hk, dh)`` cache permuted, and the kernel reads it in place;
+  ``(B, S, Hk, dh)`` cache permuted, and the kernel reads it in place.
+  An optional lower bound ``lo`` leaves out the positions below it: the
+  linear cache of sliding-window attention (``models/attention.py``)
+  attends ``[pos - W + 1, pos]``.  The kernel then reads the views from
+  row ``lo`` on (a base ``lo`` rows further, still 16-byte aligned) at
+  ``pos - lo``, so the split plan covers ``[lo, pos]`` alone; such a view
+  gets a tensor map of its own;
 * :func:`decode_attention_plain` is the plain PyTorch version, a port of
-  ``decode_attention_ref``.
+  ``decode_attention_ref`` with the lower bound as a second mask.
 
 Dispatch is on the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the hand-written Hopper kernel or raise.
@@ -108,8 +114,8 @@ def kernel_config(dtype: torch.dtype, dh: int) -> KernelConfig:
     return KernelConfig(tile, stages, smem, blocks)
 
 
-def _check(q, k, v, pos) -> int:
-    pos = operator.index(pos)
+def _check(q, k, v, pos, lo) -> tuple[int, int]:
+    pos, lo = operator.index(pos), operator.index(lo)
     if pos < 0:
         raise ValueError(f"pos must be >= 0, got {pos}")
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
@@ -132,20 +138,25 @@ def _check(q, k, v, pos) -> int:
     if not q.device == k.device == v.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
-    return pos
+    if not 0 <= lo <= min(pos, S - 1):
+        raise ValueError(f"lo must lie in [0, min(pos, S - 1)] = [0, "
+                         f"{min(pos, S - 1)}], got {lo}")
+    return pos, lo
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           pos: int) -> torch.Tensor:
+                           pos: int, lo: int = 0) -> torch.Tensor:
     """Plain version, the port of ``ref.decode_attention_ref``: scores in
-    f32 scaled by ``dh**-0.5``, positions above ``pos`` masked with
-    ``-1e30``, softmax over all S, then the weighted sum of v."""
+    f32 scaled by ``dh**-0.5``, positions above ``pos`` and below ``lo``
+    masked with ``-1e30``, softmax over all S, then the weighted sum of
+    v."""
     B, H, dh = q.shape
     Hk, S = k.shape[1], k.shape[2]
     G = H // Hk
     qg = q.reshape(B, Hk, G, dh).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * (dh ** -0.5)
-    mask = torch.arange(S, device=q.device) <= pos
+    at = torch.arange(S, device=q.device)
+    mask = (at <= pos) & (at >= lo)
     s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
@@ -328,16 +339,19 @@ def _launch(q, k, v, pos: int) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: int) -> torch.Tensor:
+                     pos: int, lo: int = 0) -> torch.Tensor:
     """q: (B, H, dh); k, v: (B, Hk, S, dh) views, head dimension
     contiguous; pos: attend to positions ``<= pos`` (all S when
-    ``pos >= S``).  Returns (B, H, dh) float32."""
-    pos = _check(q, k, v, pos)
+    ``pos >= S``) and ``>= lo`` (``lo <= min(pos, S - 1)``).  Returns
+    (B, H, dh) float32."""
+    pos, lo = _check(q, k, v, pos, lo)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, pos)
+        return decode_attention_plain(q, k, v, pos, lo)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    if lo:
+        k, v, pos = k[:, :, lo:], v[:, :, lo:], pos - lo
     return _launch(q, k, v, pos)
 
 

@@ -12,7 +12,8 @@ It keeps the reference's behaviour exactly, quirks included:
 * one global ``pos`` for every slot, advanced once per step;
 * every slot decodes every step, idle ones on their previous token;
 * a request admitted into a reused slot sees the previous request's cache
-  rows below its start (rows are masked only by ``k_pos <= pos``);
+  rows below its start (rows are masked only by ``k_pos <= pos``), and
+  starts from the previous request's recurrent state (Mamba, RWKV-6);
 * ``main``'s ``max_seq`` formula (``serve.py:100-101``); past it, the cache
   write clamps to the last row (``models/attention.py``).
 
@@ -21,7 +22,14 @@ bookkeeping needs; ``host_reads`` counts it.  The next step's feed starts
 from that host copy, where the reference reads ``self.tokens`` again
 (``np.array(self.tokens)``, which JAX serves from the copy it kept).
 Parameters live in ``compute_dtype`` on the server's device: the server
-moves and casts the module it is given in place (``nn.Module.to``), once.
+moves and casts the module it is given in place, once.  The tensors the
+reference reads in float32 (the MoE router, Mamba's ``A_log`` and ``D``,
+RWKV-6's ``w0`` and ``u``: ``transformer.F32_TENSORS``) keep the type they
+were given in, as the reference server keeps every tensor as given.  Every
+architecture of the registry serves::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --reduced --device cpu
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 
 from ..configs import get_config
 from ..devices import resolve_device
-from ..models import lm
+from ..models import lm, transformer
 
 
 class BatchedLMServer:
@@ -46,7 +54,8 @@ class BatchedLMServer:
                  device=None):
         self.device = resolve_device(device, "the server")
         self.cfg = cfg
-        self.params = params.to(device=self.device, dtype=compute_dtype)
+        self.params = transformer.cast_params(params.to(self.device),
+                                              compute_dtype)
         self.B = batch_slots
         self.max_seq = max_seq
         self.serve = lm.make_serve_step(cfg, compute_dtype)

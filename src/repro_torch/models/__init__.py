@@ -1,8 +1,8 @@
-"""Model zoo, ported to PyTorch: so far the dense GQA decoder, for
-single-token decode against a KV cache (``lm.make_serve_step``).  MoE,
-RWKV-6, Mamba, hybrids and the full-sequence forward are still to port
-(ROADMAP.md §1, queue item 2).  ``convert`` carries parameters and caches
-across from the JAX package."""
+"""Model zoo, ported to PyTorch: the dense, MoE, SSM (RWKV-6) and hybrid
+(Jamba: Mamba and attention) families of the registry, with the
+full-sequence forward and prefill, and single-token decode against KV and
+recurrent caches (``lm.make_serve_step``).  ``convert`` carries parameters
+and caches across from the JAX package."""
 
 from .config import ModelConfig
 from . import lm

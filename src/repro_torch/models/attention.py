@@ -1,11 +1,16 @@
-"""Grouped-query attention, single-token decode against a KV cache.
+"""Grouped-query attention: full / sliding-window, chunked online-softmax
+for long sequences, and single-token decode against a KV cache.
 
-The port of the decode branch of ``repro/models/attention.py``
-(``attention.py:204-248``).  The reference's decode attention is
-``_sdpa_decode`` in plain jnp; the port computes the same function (full
-causal mask over the cache, GQA without expanding kv heads) with the
-hand-written kernel ``kernels.decode_attention``, which reads the cache in
-place through a permuted view.
+The port of ``repro/models/attention.py``.  The full-sequence branch
+(train / prefill: ``_sdpa_full``, ``_sdpa_chunked``) is plain PyTorch, as
+the reference's is plain jnp.  Single-token decode runs the hand-written
+kernel ``kernels.decode_attention`` (the reference's ``_sdpa_decode`` is
+jnp), which reads the cache in place through a permuted view.
+
+Types follow the reference: scores are float32 products of the inputs in
+their own type (``preferred_element_type=jnp.float32``, so a bf16 score is
+never rounded to bf16), probabilities are cast to v's type before the PV
+product, and a PV product of 16-bit inputs rounds to their type.
 
 Where the port differs from the reference in mechanism, not result:
 
@@ -14,15 +19,27 @@ Where the port differs from the reference in mechanism, not result:
   ``dynamic_update_slice`` returns a new cache, donated by the server).
 * ``dynamic_update_slice`` clamps its start index (``attention.py:232-235``),
   so a step at ``pos >= S_max`` writes row ``S_max - 1``; the port writes
-  ``min(pos, S_max - 1)``, and every row is then attended.
+  ``min(slot, S_max - 1)``, and every row is then attended.
 * Cache rows are masked only by ``k_pos <= pos`` (``attention.py:243``):
   rows left by an earlier request in the same batch slot stay visible,
   as in the reference.
-
-Not ported yet (ROADMAP.md §1, queue item 2), and raising
-``NotImplementedError``: the full-sequence branch (``_sdpa_full``,
-``_sdpa_chunked``, ``return_kv``), sliding-window attention and the int8
-cache.
+* Sliding-window decode.  A rolling cache (``S_max <= W``, what
+  ``init_cache`` builds) holds position ``p`` at slot ``p % S_max``; the
+  kernel attends slots ``<= pos`` (all once ``pos >= S_max``), which is
+  the reference's mask: softmax does not care about slot order, and every
+  slot lies inside the window.  A linear cache (``S_max > W``, only from
+  ``prefill(..., kv_pad_to > W)``) also masks ``pos - k_pos >= W``: the
+  kernel's lower bound ``lo = pos - W + 1``.  The reference rolls a
+  prefill longer than the window into ``W`` slots and then pads it past
+  ``W`` (``:197-201``), and such a padded cache is indexed linearly
+  (``:209-213``): kept as it is.
+* int8 cache: the step's k and v are quantized per (position, kv head)
+  with float16 scales (round half to even in both packages), the whole
+  cache is dequantized to ``compute_dtype`` as the reference does
+  (``:224-229``), then the kernel runs on that copy.
+* Past ``S_max + W - 1`` on a linear sliding-window cache the reference's
+  mask is empty, and its softmax averages every row; the port's lower
+  bound stops at the last row, which it then attends alone.
 """
 
 from __future__ import annotations
@@ -34,22 +51,18 @@ import torch
 from ..kernels.decode_attn import decode_attention
 from .layers import apply_rope, normal_init
 
-#: where the branches this module leaves out are queued
-ROADMAP_ITEM = "ROADMAP.md §1, queue item 2"
+NEG_INF = -1e30
+#: the chunked (online-softmax) path runs for S > CHUNK_THRESHOLD
+CHUNK_THRESHOLD = 4096
+KV_CHUNK = 1024
+#: position of the chunked path's padding keys: never attended
+PAD_POS = 2 ** 30
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: the port runs "
-                               f"dense full-attention decode only "
-                               f"({ROADMAP_ITEM})")
-
-
-def check_supported(cfg, cache_dtype=None) -> None:
-    """Raise for the attention variants this module leaves out."""
-    if cfg.attention == "swa":
-        raise _not_ported("sliding-window attention (attention='swa')")
-    if cache_dtype == torch.int8:
-        raise _not_ported("the int8 KV cache")
+def _expand_kv(k: torch.Tensor, G: int) -> torch.Tensor:
+    """Repeat kv heads to the full query-head count (``jnp.repeat`` on
+    the head axis)."""
+    return k if G == 1 else k.repeat_interleave(G, dim=2)
 
 
 def init_attention(gen: torch.Generator, cfg, dtype, device=None
@@ -84,31 +97,131 @@ def _project_qkv(params, x: torch.Tensor, cfg, compute_dtype):
             v.reshape(B, S, Hk, dh))
 
 
-def attention(params, x: torch.Tensor, cfg, *, compute_dtype,
-              cache: Optional[dict] = None, pos: Optional[int] = None
-              ) -> Tuple[torch.Tensor, dict]:
-    """Single-token decode: ``cache`` = {"k", "v"} of (B, S_max, Hk, dh),
-    updated in place; ``pos`` a Python int, the current length; x is
-    (B, 1, D).  Returns (y, cache).  Without a cache (the reference's
-    full-sequence branch) it raises."""
-    if cache is None:
-        raise _not_ported("full-sequence attention (train / prefill: "
-                          "_sdpa_full, _sdpa_chunked, return_kv)")
-    check_supported(cfg, cache["k"].dtype)
-    B = x.shape[0]
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, cfg) -> torch.Tensor:
+    """(Sq, Sk) causal mask, with the window for sliding-window attention."""
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if cfg.attention == "swa":
+        mask &= (q_pos[:, None] - k_pos[None, :]) < cfg.swa_window
+    return mask
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
+    """``einsum(eq, p.astype(v.dtype), v)``: float32 sums of the products,
+    rounded to v's type (XLA's dot of 16-bit inputs)."""
+    return torch.einsum(eq, p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def _sdpa_full(q, k, v, q_pos, k_pos, cfg) -> torch.Tensor:
+    """Dense causal (+ SWA) attention. q: (B,Sq,H,dh), k/v: (B,Sk,Hk,dh)."""
+    dh = q.shape[-1]
+    G = q.shape[2] // k.shape[2]
+    k, v = _expand_kv(k, G), _expand_kv(v, G)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores * (dh ** -0.5)
+    scores = scores.masked_fill(~_mask(q_pos, k_pos, cfg)[None, None],
+                                NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _pv(probs, v, "bhqk,bkhd->bqhd")
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, cfg, chunk: int = KV_CHUNK
+                  ) -> torch.Tensor:
+    """Online softmax over KV chunks; memory O(Sq * chunk) per head.  The
+    last chunk is padded with zero keys at position ``PAD_POS``."""
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    Sk = k.shape[1]
+    n_chunks = -(-Sk // chunk)
+    dt = q.dtype
+    q = (q * (dh ** -0.5)).float()
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, H, Sq, dh), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        lo, hi = c * chunk, min((c + 1) * chunk, Sk)
+        k_i, v_i = k[:, lo:hi], v[:, lo:hi]
+        p_i = k_pos[lo:hi]
+        if hi - lo < chunk:
+            pad = chunk - (hi - lo)
+            k_i = torch.nn.functional.pad(k_i, (0, 0, 0, 0, 0, pad))
+            v_i = torch.nn.functional.pad(v_i, (0, 0, 0, 0, 0, pad))
+            p_i = torch.nn.functional.pad(p_i, (0, pad), value=PAD_POS)
+        k_i, v_i = _expand_kv(k_i, G), _expand_kv(v_i, G)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k_i.float())
+        s = s.masked_fill(~_mask(q_pos, p_i, cfg)[None, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + _pv(p, v_i, "bhqk,bkhd->bhqd").float()
+        m = m_new
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(dt)
+
+
+def attention(params, x: torch.Tensor, cfg, *, positions=None,
+              compute_dtype, cache: Optional[dict] = None,
+              pos: Optional[int] = None, chunked: Optional[bool] = None,
+              return_kv: bool = False, kv_pad_to: int = 0
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Full-sequence (train / prefill) or single-token decode attention.
+
+    Train/prefill: ``positions`` (S,) int; returns (y, None) or, with
+    ``return_kv``, (y, cache) in :func:`init_cache`'s layout (SWA: rolling
+    slots; padded to ``kv_pad_to`` rows when that is longer).
+    Decode: ``cache`` = {"k", "v"} (and "k_scale", "v_scale" for int8) of
+    (B, S_max, Hk, dh), updated in place; ``pos`` a Python int, the
+    current length; x is (B, 1, D).  Returns (y, cache)."""
+    B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, compute_dtype)
+    if cache is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        use_chunked = S > CHUNK_THRESHOLD if chunked is None else chunked
+        sdpa = _sdpa_chunked if use_chunked else _sdpa_full
+        out = sdpa(q, k, v, positions, positions, cfg)
+        y = out.reshape(B, S, -1) @ params["wo"].to(compute_dtype)
+        if not return_kv:
+            return y, None
+        kc, vc = k, v
+        W = cfg.swa_window
+        if cfg.attention == "swa" and S >= W:
+            # decode writes position p at slot p % W: the last W positions
+            # S - W + i land at slot (S % W + i) % W, a roll by S % W
+            kc = torch.roll(kc[:, -W:], S % W, dims=1)
+            vc = torch.roll(vc[:, -W:], S % W, dims=1)
+        if kv_pad_to and kv_pad_to > kc.shape[1]:
+            pad = (0, 0, 0, 0, 0, kv_pad_to - kc.shape[1])
+            kc = torch.nn.functional.pad(kc, pad)
+            vc = torch.nn.functional.pad(vc, pad)
+        return y, {"k": kc, "v": vc}
+    # -- decode ---------------------------------------------------------------
     at = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, at, cfg.rope_theta)
     k = apply_rope(k, at, cfg.rope_theta)
+    S_max = cache["k"].shape[1]
+    rolling = cfg.attention == "swa" and S_max <= cfg.swa_window
     # dynamic_update_slice clamps the start (attention.py:232-235)
-    slot = min(pos, cache["k"].shape[1] - 1)
-    cache["k"][:, slot].copy_(k[:, 0])
-    cache["v"][:, slot].copy_(v[:, 0])
-    # the reference attends over the cache cast to compute_dtype; a cache
-    # already in compute_dtype (the server's) is read in place
-    kc, vc = (cache[n].to(compute_dtype).permute(0, 2, 1, 3)
-              for n in ("k", "v"))
-    out = decode_attention(q[:, 0], kc, vc, pos)
+    slot = pos % S_max if rolling else min(pos, S_max - 1)
+    if cache["k"].dtype == torch.int8:
+        for name, t in (("k", k), ("v", v)):
+            codes, scale = _quantize_kv(t)
+            cache[name][:, slot].copy_(codes[:, 0])
+            cache[name + "_scale"][:, slot].copy_(scale[:, 0])
+        kc, vc = (_dequantize_kv(cache[n], cache[n + "_scale"],
+                                 compute_dtype) for n in ("k", "v"))
+    else:
+        cache["k"][:, slot].copy_(k[:, 0])
+        cache["v"][:, slot].copy_(v[:, 0])
+        # the reference attends over the cache cast to compute_dtype; a
+        # cache already in compute_dtype (the server's) is read in place
+        kc, vc = (cache[n].to(compute_dtype) for n in ("k", "v"))
+    lo = 0
+    if cfg.attention == "swa" and not rolling:
+        lo = min(max(pos - cfg.swa_window + 1, 0), S_max - 1)
+    out = decode_attention(q[:, 0], kc.permute(0, 2, 1, 3),
+                           vc.permute(0, 2, 1, 3), pos, lo)
     y = out.to(compute_dtype).reshape(B, 1, -1) @ params["wo"].to(
         compute_dtype)
     return y, cache
@@ -117,10 +230,31 @@ def attention(params, x: torch.Tensor, cfg, *, compute_dtype,
 def init_cache(cfg, batch: int, max_seq: int, dtype, device=None
                ) -> Dict[str, torch.Tensor]:
     """KV cache of zeros, (batch, max_seq, Hk, dh) each, the reference's
-    layout."""
-    check_supported(cfg, dtype)
+    layout; ``max_seq`` capped at the window for sliding-window attention.
+    ``dtype=torch.int8`` stores int8 codes with one float16 scale per
+    (position, kv head)."""
     dh, Hk = cfg.head_dim_, cfg.n_kv_heads
-    return {"k": torch.zeros((batch, max_seq, Hk, dh), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_seq, Hk, dh), dtype=dtype,
-                             device=device)}
+    if cfg.attention == "swa":
+        max_seq = min(max_seq, cfg.swa_window)
+    cache = {n: torch.zeros((batch, max_seq, Hk, dh), dtype=dtype,
+                            device=device) for n in ("k", "v")}
+    if dtype == torch.int8:
+        for n in ("k_scale", "v_scale"):
+            cache[n] = torch.zeros((batch, max_seq, Hk), dtype=torch.float16,
+                                   device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, Hk, dh) -> int8 codes and float16 scales a (pos, head):
+    ``max(|x|) / 127`` (at least 1e-6 / 127), codes rounded half to even
+    as ``jnp.round`` rounds."""
+    x = x.float()
+    scale = torch.clamp(x.abs().amax(dim=-1), min=1e-6) / 127.0
+    codes = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale.to(torch.float16)
+
+
+def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype
+                   ) -> torch.Tensor:
+    return (codes.float() * scale.float()[..., None]).to(dtype)

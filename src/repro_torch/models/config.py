@@ -2,9 +2,8 @@
 hybrid families of the assigned architecture pool.
 
 A copy of ``repro/models/config.py`` (framework-free; the port keeps its
-own copy rather than import the JAX package).  The port runs the dense
-family so far; the other fields are kept so that every configuration of
-the registry loads and the unported ones raise where they are used."""
+own copy rather than import the JAX package).  The port runs every
+family of the registry."""
 
 from __future__ import annotations
 

@@ -7,6 +7,10 @@ group of ``g = len(cfg.layer_kinds())`` layers.  Tensors keep the
 reference's ``(in, out)`` layout, so the carry-over is a copy, never a
 transpose.  ``jax.tree.map(np.asarray, tree)`` of a reference tree is what
 the ``*_from_numpy`` functions take, and what ``*_to_numpy`` give back.
+Every family's blocks carry across: an RWKV-6 block has no ``ffn``, an MoE
+``ffn`` holds stacked ``(E, D, F)`` experts and a float32 router, and the
+caches hold ``{k, v}`` (int8 with float16 ``k_scale``, ``v_scale``),
+``{h, conv}`` or ``{wkv, tm_shift, cm_shift}``.  Round trips are exact.
 """
 
 from __future__ import annotations
@@ -18,14 +22,13 @@ import torch
 
 from .transformer import Transformer
 
-_SUBS = ("norm1", "mixer", "norm2", "ffn")
 
-
-def _tensor(a, device, dtype) -> torch.Tensor:
+def _tensor(a, device, dtype, kinds: str = "f") -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.kind != "f" or a.dtype.itemsize < 2:
-        raise TypeError(f"expected a float array of a numpy dtype, got "
-                        f"{a.dtype}")
+    if a.dtype.kind not in kinds or (a.dtype.kind == "f"
+                                     and a.dtype.itemsize < 2):
+        raise TypeError(f"expected an array of kind {kinds!r} of a numpy "
+                        f"dtype, got {a.dtype}")
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
@@ -45,8 +48,8 @@ def params_from_numpy(cfg, tree: Dict, device=None, dtype=None
     for layer in range(cfg.n_layers):
         group, b = _layer_index(cfg, layer)
         gp = tree["groups"][b]
-        blocks.append({sub: {name: t(a[group]) for name, a in gp[sub].items()}
-                       for sub in _SUBS})
+        blocks.append({sub: {name: t(a[group]) for name, a in tensors.items()}
+                       for sub, tensors in gp.items()})
     return Transformer(cfg, t(tree["embed"]), blocks,
                        {k: t(a) for k, a in tree["final_norm"].items()},
                        t(tree["lm_head"]) if "lm_head" in tree else None)
@@ -65,7 +68,7 @@ def params_to_numpy(cfg, params: Transformer) -> Dict:
         groups[f"b{i}"] = {sub: {name: np.stack([n(b[sub][name])
                                                  for b in layers])
                                  for name in layers[0][sub]}
-                           for sub in _SUBS}
+                           for sub in layers[0]}
     tree = {"embed": n(params.embed), "groups": groups,
             "final_norm": {k: n(v) for k, v in params.final_norm.items()}}
     if not cfg.tie_embeddings:
@@ -76,11 +79,12 @@ def params_to_numpy(cfg, params: Transformer) -> Dict:
 def cache_from_numpy(cfg, tree: Dict, device=None
                      ) -> List[Dict[str, torch.Tensor]]:
     """The port's per-layer cache from the reference's cache tree
-    (``{"b{i}": {"k", "v"}}`` of ``(n_groups, B, S, Hk, dh)``)."""
+    (``{"b{i}": {name: (n_groups, B, ...)}}``), each tensor in its own
+    type (int8 codes included)."""
     out = []
     for layer in range(cfg.n_layers):
         group, b = _layer_index(cfg, layer)
-        out.append({k: _tensor(a[group], device, None)
+        out.append({k: _tensor(a[group], device, None, kinds="fi")
                     for k, a in tree[b].items()})
     return out
 

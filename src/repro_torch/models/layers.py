@@ -3,13 +3,13 @@
 The port of ``repro/models/layers.py``.  Parameters are plain tensors in
 dicts (an ``nn.ParameterDict`` in the model) with the reference's names,
 shapes and ``(in, out)`` weight layout, so ``x @ w`` reads the same in
-both packages.  ``chunked_time_scan`` belongs to the SSM families, which
-the port does not run yet (ROADMAP.md §1, queue item 2).
+both packages.  ``chunked_time_scan`` is the recurrent families' scan over
+time (Mamba, RWKV-6).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,3 +89,22 @@ def mlp(params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     h = (F.silu(x @ params["w_gate"].to(compute_dtype))
          * (x @ params["w_up"].to(compute_dtype)))
     return h @ params["w_down"].to(compute_dtype)
+
+
+def chunked_time_scan(step: Callable, init, xs, chunk: int = 256
+                      ) -> Tuple[object, object]:
+    """``carry, y = step(carry, x_t)`` over the time-major leading axis of
+    ``xs`` (a tensor or a tuple of tensors); returns ``(carry, ys)`` with
+    ``ys`` stacked time-major (a tensor, or a tuple where ``step`` returns
+    one).  The reference scans in chunks only to rematerialise the carry
+    in the backward pass (``layers.py:73-97``); the forward result does not
+    depend on ``chunk``, which is kept for the signature."""
+    seq = xs if isinstance(xs, tuple) else (xs,)
+    carry, ys = init, []
+    for t in range(seq[0].shape[0]):
+        x_t = tuple(x[t] for x in seq)
+        carry, y = step(carry, x_t if isinstance(xs, tuple) else x_t[0])
+        ys.append(y)
+    if ys and isinstance(ys[0], tuple):
+        return carry, tuple(torch.stack(y) for y in zip(*ys))
+    return carry, torch.stack(ys)

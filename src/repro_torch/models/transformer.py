@@ -1,22 +1,27 @@
-"""Transformer assembly and single-token decode, in PyTorch.
+"""Transformer assembly: blocks of every layer kind, the full-sequence
+forward and prefill, caches and single-token decode, in PyTorch.
 
-The port of ``repro/models/transformer.py`` for the dense family.  The
-reference stacks each group of layers on a leading axis and scans over
-the groups with ``lax.scan``; the port holds one :class:`Block` per layer
-in an ``nn.ModuleList`` and loops over them.  ``models/convert.py`` maps
-one layout onto the other.  Parameters keep the reference's names, shapes
-and ``(in, out)`` weight layout, in the dtype they were made in: a server
-holds them in its ``compute_dtype``, so the reference's per-step
-``astype(compute_dtype)`` (``transformer.py:261``, ``:272``) is a no-op
-here, never a copy of the 933 MB embedding.
+The port of ``repro/models/transformer.py``.  The reference stacks each
+group of layers (``cfg.layer_kinds()``: one attention layer for the dense
+and MoE families, one RWKV-6 layer, or Jamba's group of 7 Mamba layers
+with attention at index 4) on a leading axis and scans over the groups
+with ``lax.scan``; the port holds one :class:`Block` per layer in an
+``nn.ModuleList`` and loops over them.  ``models/convert.py`` maps one
+layout onto the other.  Parameters keep the reference's names, shapes and
+``(in, out)`` weight layout, in the dtype they were made in: a server
+holds them in its ``compute_dtype`` (:func:`cast_params`, which leaves the
+tensors the reference reads in float32 alone), so the reference's
+per-use ``astype(compute_dtype)`` is a no-op here, never a copy of the
+embedding.
 
-``sharding.constraints`` has no counterpart: without a mesh its calls are
-no-ops in the reference.
-
-Not ported yet (ROADMAP.md §1, queue item 2), and raising
-``NotImplementedError``: Mamba, RWKV-6 and MoE layers, the full-sequence
-``forward`` and ``prefill`` (and with them the modality stubs' precomputed
-embeddings).
+Caches are lists with one dict a layer, in the reference's per-block
+layout (``{k, v}``, with ``k_scale`` and ``v_scale`` for int8; ``{h,
+conv}``; ``{wkv, tm_shift, cm_shift}``), and decode updates them in place.
+Float32 products run in IEEE float32 whatever the global TF32 setting
+(``devices.ieee_fp32_matmul``).  Remat (``remat_policy``) has no
+counterpart: it changes what the backward pass saves, never a forward
+value.  ``sharding.constraints`` has no counterpart either: without a mesh
+its calls are no-ops in the reference.
 """
 
 from __future__ import annotations
@@ -28,21 +33,18 @@ from torch import nn
 
 from ..devices import ieee_fp32_matmul
 from . import attention as attn_mod
+from . import mamba as mamba_mod
+from . import moe as moe_mod
+from . import rwkv6 as rwkv_mod
 from .layers import apply_norm, init_mlp, init_norm, mlp, normal_init
 
-ROADMAP_ITEM = attn_mod.ROADMAP_ITEM
-
-
-def check_supported(cfg) -> None:
-    """Raise for the layer kinds this port leaves out."""
-    for kind in cfg.layer_kinds():
-        if kind != "attn":
-            raise NotImplementedError(f"{kind} layers are not ported yet "
-                                      f"({ROADMAP_ITEM})")
-    if "moe" in cfg.ffn_kinds():
-        raise NotImplementedError(f"MoE feed-forward layers are not ported "
-                                  f"yet ({ROADMAP_ITEM})")
-    attn_mod.check_supported(cfg)
+#: tensors the reference reads in float32 whatever the compute dtype (the
+#: MoE router, Mamba's A_log and D, RWKV-6's w0 and bonus u): a server keeps
+#: them in the type they were made in
+F32_TENSORS = frozenset({"router", "A_log", "D", "w0", "u"})
+#: a block's parameter groups, in the reference's order; an RWKV-6 block
+#: has no ``ffn`` (channel-mix plays that role)
+SUBS = ("norm1", "mixer", "norm2", "ffn")
 
 
 def _params(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -51,23 +53,23 @@ def _params(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One layer: ``norm1``, the attention ``mixer``, ``norm2`` and the
-    SwiGLU ``ffn``, each a dict of the reference's tensors."""
+    """One layer: ``norm1``, the ``mixer`` (attention, Mamba or RWKV-6),
+    ``norm2`` and, but for RWKV-6, the ``ffn`` (SwiGLU or MoE), each a dict
+    of the reference's tensors."""
 
     def __init__(self, tensors: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
-        self.norm1 = _params(tensors["norm1"])
-        self.mixer = _params(tensors["mixer"])
-        self.norm2 = _params(tensors["norm2"])
-        self.ffn = _params(tensors["ffn"])
+        self.subs = tuple(s for s in SUBS if s in tensors)
+        for name in self.subs:
+            setattr(self, name, _params(tensors[name]))
 
     def tensors(self) -> Dict[str, Dict[str, torch.Tensor]]:
         return {name: dict(getattr(self, name).items())
-                for name in ("norm1", "mixer", "norm2", "ffn")}
+                for name in self.subs}
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense decoder: ``embed`` (V, D), ``blocks``,
+    """Parameters of a decoder: ``embed`` (V, D), ``blocks``,
     ``final_norm`` and, without tied embeddings, ``lm_head`` (D, V)."""
 
     def __init__(self, cfg, embed: torch.Tensor,
@@ -75,7 +77,6 @@ class Transformer(nn.Module):
                  final_norm: Dict[str, torch.Tensor],
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
-        check_supported(cfg)
         if len(blocks) != cfg.n_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.n_layers} "
                              f"layers")
@@ -89,16 +90,44 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(lm_head, requires_grad=False)
 
 
+def cast_params(params: Transformer, dtype) -> Transformer:
+    """Cast every parameter to ``dtype`` in place, but for
+    :data:`F32_TENSORS`, which keep their type."""
+    for name, p in params.named_parameters():
+        if name.rsplit(".", 1)[-1] not in F32_TENSORS:
+            p.data = p.data.to(dtype)
+    return params
+
+
+def layer_kinds(cfg, layer: int):
+    """``(mixer kind, ffn kind)`` of layer ``layer`` (groups of
+    ``len(cfg.layer_kinds())`` layers)."""
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    return kinds[layer % len(kinds)], ffns[layer % len(kinds)]
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen: torch.Generator, cfg, dtype, device=None):
-    return {"norm1": init_norm(cfg, dtype, device),
-            "mixer": attn_mod.init_attention(gen, cfg, dtype, device),
-            "norm2": init_norm(cfg, dtype, device),
-            "ffn": init_mlp(gen, cfg, dtype, device)}
+def init_block(gen: torch.Generator, kind: str, ffn_kind: str, cfg, dtype,
+               device=None):
+    p = {"norm1": init_norm(cfg, dtype, device)}
+    if kind == "attn":
+        p["mixer"] = attn_mod.init_attention(gen, cfg, dtype, device)
+    elif kind == "mamba":
+        p["mixer"] = mamba_mod.init_mamba(gen, cfg, dtype, device)
+    elif kind == "rwkv6":
+        p["mixer"] = rwkv_mod.init_rwkv6(gen, cfg, dtype, device)
+        p["norm2"] = init_norm(cfg, dtype, device)
+        return p                  # rwkv6 channel-mix plays the FFN role
+    else:
+        raise ValueError(kind)
+    p["norm2"] = init_norm(cfg, dtype, device)
+    p["ffn"] = (moe_mod.init_moe(gen, cfg, dtype, device) if ffn_kind == "moe"
+                else init_mlp(gen, cfg, dtype, device))
+    return p
 
 
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
@@ -106,11 +135,10 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
     """Random parameters with the reference's shapes and scales
     (``transformer.py:58``), drawn from ``gen`` (a ``torch.Generator`` on
     ``device``)."""
-    check_supported(cfg)
     V, D = cfg.vocab_size, cfg.d_model
     embed = normal_init(gen, (V, D), D ** -0.5, dtype, device)
-    blocks = [init_block(gen, cfg, dtype, device)
-              for _ in range(cfg.n_layers)]
+    blocks = [init_block(gen, *layer_kinds(cfg, l), cfg, dtype, device)
+              for l in range(cfg.n_layers)]
     lm_head = (None if cfg.tie_embeddings
                else normal_init(gen, (D, V), D ** -0.5, dtype, device))
     return Transformer(cfg, embed, blocks, init_norm(cfg, dtype, device),
@@ -122,35 +150,118 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
-def apply_block(bp: Block, x: torch.Tensor, cfg, compute_dtype, *,
-                cache=None, pos: Optional[int] = None):
-    """Attention then SwiGLU, each behind its norm and residual
-    (``transformer.py:80``).  Returns ``(x, cache)``; the reference's MoE
-    auxiliary loss has no counterpart without MoE."""
+def apply_block(bp: Block, x: torch.Tensor, kind: str, ffn_kind: str, cfg,
+                compute_dtype, *, positions=None, cache=None,
+                pos: Optional[int] = None, collect_cache: bool = False,
+                kv_pad_to: int = 0):
+    """The mixer then the FFN, each behind its norm and residual
+    (``transformer.py:80``).  Returns ``(x, aux_loss, cache)``: the MoE
+    load-balancing loss (None for other FFNs, where the reference's is 0)
+    and the layer's cache (decode: the one given, updated in place;
+    prefill with ``collect_cache``: a new one in ``init_cache``'s layout;
+    else None)."""
+    aux = None
     h = apply_norm(bp.norm1, x, cfg)
-    y, new_cache = attn_mod.attention(bp.mixer, h, cfg,
-                                      compute_dtype=compute_dtype,
-                                      cache=cache, pos=pos)
-    x = x + y
+    if kind == "attn":
+        y, new_cache = attn_mod.attention(
+            bp.mixer, h, cfg, positions=positions,
+            compute_dtype=compute_dtype, cache=cache, pos=pos,
+            return_kv=collect_cache, kv_pad_to=kv_pad_to)
+        x = x + y
+    elif kind == "mamba":
+        y, new_cache = mamba_mod.mamba(bp.mixer, h, cfg, compute_dtype,
+                                       cache=cache,
+                                       return_state=collect_cache)
+        x = x + y
+    elif kind == "rwkv6":
+        st = cache or {}
+        y, wkv, tm_shift = rwkv_mod.time_mix(
+            bp.mixer, h, cfg, compute_dtype, state=st.get("wkv"),
+            shift_state=st.get("tm_shift"))
+        x = x + y
+        h2 = apply_norm(bp.norm2, x, cfg)
+        y2, cm_shift = rwkv_mod.channel_mix(
+            bp.mixer, h2, cfg, compute_dtype,
+            shift_state=st.get("cm_shift"))
+        new_cache = {"wkv": wkv, "tm_shift": tm_shift, "cm_shift": cm_shift}
+        if cache is not None:
+            for name, t in new_cache.items():
+                cache[name].copy_(t)
+            new_cache = cache
+        elif not collect_cache:
+            new_cache = None
+        return x + y2, aux, new_cache
+    else:
+        raise ValueError(kind)
     h2 = apply_norm(bp.norm2, x, cfg)
-    return x + mlp(bp.ffn, h2, compute_dtype), new_cache
+    if ffn_kind == "moe":
+        y2, aux = moe_mod.moe_ffn(bp.ffn, h2, cfg, compute_dtype)
+    else:
+        y2 = mlp(bp.ffn, h2, compute_dtype)
+    return x + y2, aux, new_cache
+
+
+def _embed(params: Transformer, tokens, embeds, compute_dtype):
+    if embeds is None:
+        return params.embed.to(compute_dtype)[tokens]
+    return embeds.to(compute_dtype)
+
+
+def _head(cfg, params: Transformer, compute_dtype) -> torch.Tensor:
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return head.to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------
-# full sequence: not ported yet
+# full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
-def forward(cfg, params, *, tokens=None, embeds=None, **kw):
-    raise NotImplementedError(f"the full-sequence forward (train, and the "
-                              f"modality stubs' embeddings) is not ported "
-                              f"yet ({ROADMAP_ITEM})")
+def forward(cfg, params: Transformer, *, tokens=None, embeds=None,
+            positions=None, compute_dtype=torch.bfloat16):
+    """Returns ``(logits[B, S, V] float32, moe_aux_loss)``: tokens (B, S)
+    through the embedding, or ``embeds`` (B, S, D) as the modality stubs
+    give them."""
+    with ieee_fp32_matmul():
+        x = _embed(params, tokens, embeds, compute_dtype)
+        S = x.shape[1]
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for l, bp in enumerate(params.blocks):
+            x, aux, _ = apply_block(bp, x, *layer_kinds(cfg, l), cfg,
+                                    compute_dtype, positions=positions)
+            if aux is not None:
+                aux_total = aux_total + aux
+        x = apply_norm(params.final_norm, x, cfg)
+        logits = (x @ _head(cfg, params, compute_dtype)).float()
+    return logits, aux_total
 
 
-def prefill(cfg, params, *, tokens=None, embeds=None, **kw):
-    raise NotImplementedError(f"the full-sequence prefill is not ported yet "
-                              f"({ROADMAP_ITEM}); serving prefills one "
-                              f"prompt token per decode step")
+# ---------------------------------------------------------------------------
+# prefill (full sequence -> last-token logits + cache for decode)
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg, params: Transformer, *, tokens=None, embeds=None,
+            compute_dtype=torch.bfloat16, kv_pad_to: int = 0):
+    """Serving prefill: run the full sequence, return ``(last_logits[B, V],
+    cache)`` with the cache laid out as :func:`init_cache` and decode expect
+    (attention fills the KV cache, the recurrent layers hand over their
+    final state)."""
+    with ieee_fp32_matmul():
+        x = _embed(params, tokens, embeds, compute_dtype)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        caches = []
+        for l, bp in enumerate(params.blocks):
+            x, _, c = apply_block(bp, x, *layer_kinds(cfg, l), cfg,
+                                  compute_dtype, positions=positions,
+                                  collect_cache=True, kv_pad_to=kv_pad_to)
+            caches.append(c)
+        x = apply_norm(params.final_norm, x[:, -1:, :], cfg)
+        logits = (x[:, 0, :] @ _head(cfg, params, compute_dtype)).float()
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------
@@ -160,24 +271,31 @@ def prefill(cfg, params, *, tokens=None, embeds=None, **kw):
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device=None) -> List[Dict[str, torch.Tensor]]:
-    """One KV cache per layer (``transformer.py:240``), each
-    (batch, max_seq, Hk, dh) for k and for v."""
-    check_supported(cfg)
-    return [attn_mod.init_cache(cfg, batch, max_seq, dtype, device)
-            for _ in range(cfg.n_layers)]
+    """One cache a layer (``transformer.py:240``): a KV cache for
+    attention (``dtype=torch.int8`` quantizes it), the state for Mamba and
+    RWKV-6 (float32 states; the shift and conv inputs in ``dtype``)."""
+    out = []
+    for l in range(cfg.n_layers):
+        kind, _ = layer_kinds(cfg, l)
+        if kind == "attn":
+            out.append(attn_mod.init_cache(cfg, batch, max_seq, dtype,
+                                           device))
+        elif kind == "mamba":
+            out.append(mamba_mod.init_mamba_cache(cfg, batch, dtype, device))
+        else:
+            out.append(rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device))
+    return out
 
 
 def decode_step(cfg, params: Transformer, cache, token: torch.Tensor,
                 pos: int, compute_dtype=torch.bfloat16):
     """token: (B,) int32; pos: Python int (current length).  Returns
-    ``(logits[B, V] float32, cache)``, the cache updated in place.
-    Float32 matmuls run in IEEE float32 whatever the global TF32 setting
-    (``devices.ieee_fp32_matmul``)."""
+    ``(logits[B, V] float32, cache)``, the cache updated in place."""
     with ieee_fp32_matmul():
         x = params.embed.to(compute_dtype).index_select(0, token)[:, None]
-        for bp, bc in zip(params.blocks, cache):
-            x, _ = apply_block(bp, x, cfg, compute_dtype, cache=bc, pos=pos)
+        for l, (bp, bc) in enumerate(zip(params.blocks, cache)):
+            x, _, _ = apply_block(bp, x, *layer_kinds(cfg, l), cfg,
+                                  compute_dtype, cache=bc, pos=pos)
         x = apply_norm(params.final_norm, x, cfg)
-        head = params.embed.T if cfg.tie_embeddings else params.lm_head
-        logits = (x[:, 0, :] @ head.to(compute_dtype)).float()
+        logits = (x[:, 0, :] @ _head(cfg, params, compute_dtype)).float()
     return logits, cache

@@ -235,6 +235,11 @@ def _worker_main(execution, key: Location, conn) -> None:
         local_ctx.tasklets = tasklets
 
         def _acked(snapshot_id: int) -> None:
+            # F7: the results this worker's sinks took before the barrier
+            # go out ahead of the ack.  Once the snapshot commits, a
+            # restore never replays them: left for the next periodic
+            # ship, they die with the worker if it is killed first
+            _ship_results(conn, sinks)
             conn.send(("ack", snapshot_id, writer.take()))
 
         local_ctx.on_complete = _acked

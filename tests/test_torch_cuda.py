@@ -504,6 +504,57 @@ def test_decode_kernel_rejects_strided_head_dim(cuda):
         decode_attention(torch.zeros(1, 4, 18, device=cuda), k18, k18, 3)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos,lo", [(1000, 0), (1000, 1000), (1000, 5),
+                                    (1000, 970), (1500, 1023)])
+def test_decode_kernel_lower_bound_matches_plain(cuda, dtype, pos, lo):
+    """The lower bound of the linear sliding-window cache: ``lo`` at 0, at
+    ``pos``, inside the first and the last 64-row tile, and with
+    ``pos >= S``; one launch."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(pos + lo)
+    q = torch.from_numpy(rng.randn(8, 12, 128).astype(np.float32)).to(cuda, dt)
+    k, v = (torch.from_numpy(rng.randn(8, 1024, 2, 128).astype(np.float32))
+            .to(cuda, dt).permute(0, 2, 1, 3) for _ in range(2))
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, pos, lo)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    torch.testing.assert_close(got, decode_attention_plain(q, k, v, pos, lo),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-v0.1-52b",
+                                  "rwkv6-7b", "phi3.5-moe-42b-a6.6b"])
+def test_every_family_served_on_cuda_matches_cpu(cuda, arch):
+    """Each family (reduced) served on both devices from the same weights
+    in float32 gives the same completions; every attention layer launches
+    the kernel every step (mixtral's window of 32 rows wraps)."""
+    cfg = get_config(arch).reduced()
+    tree = params_to_numpy(cfg, lm.init_params(
+        cfg, torch.Generator().manual_seed(1), device="cpu"))
+    rng = np.random.RandomState(1)
+    prompts = [(i, rng.randint(0, cfg.vocab_size, 6).tolist())
+               for i in range(8)]
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds()) * cfg.n_groups
+
+    def drain(device):
+        srv = BatchedLMServer(cfg, params_from_numpy(cfg, tree, device),
+                              batch_slots=4, max_seq=64, device=device)
+        pending, steps = list(prompts), 0
+        while pending or srv.active:
+            while pending and srv.submit(*pending[0], 10):
+                pending.pop(0)
+            srv.step()
+            steps += 1
+        return [(r["id"], r["out"]) for r in srv.completed], steps
+
+    before = decode_attention.launches
+    on_card, steps = drain(cuda)
+    assert decode_attention.launches - before == n_attn * steps
+    assert on_card == drain("cpu")[0]
+
+
 def test_server_on_cuda_matches_cpu(cuda):
     """A reduced qwen2 served on both devices from the same weights gives
     the same completions; every layer launches the kernel every step."""

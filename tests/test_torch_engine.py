@@ -214,3 +214,70 @@ def test_allowed_lateness_refires_and_late_side_output_equal_reference():
     assert got_late == ref_late
     refired = len(ref_out) - len({(w, k) for _t, k, w, _v in ref_out})
     assert refired > 0 and len(ref_late) > 0    # both paths ran
+
+
+def test_watermark_waits_for_the_frames_it_closed():
+    """F6 (ROADMAP.md §3): a stage-1 accumulate closes two frames on a
+    watermark, one partial for each of two queues of its partitioned
+    out-edge; the first queue is full, so the flush stops there and holds
+    back the second queue's partial too.  The watermark must not reach the
+    second queue ahead of that partial: the combine downstream would close
+    the window without it and drop it unseen (in ``backend="mp"`` a queue
+    parked on a barrier fills its ring: the undercounts of F6).  The
+    interleaving is built by hand, so the check is deterministic."""
+    from repro_torch.core.dag import PARTITION_COUNT, Routing
+    from repro_torch.core.events import Event, Watermark
+    from repro_torch.core.queues import SPSCQueue
+    from repro_torch.core.tasklet import (
+        GUARANTEE_EXACTLY_ONCE, EdgeCollector, InQueue, ProcessorTasklet,
+        SnapshotContext)
+    from repro_torch.core.window import (
+        AccumulateByFrameProcessor, CombineFramesProcessor, counting,
+        sliding)
+
+    wdef = sliding(40, 10)
+    src = SPSCQueue(64)
+    for ts, key in [(1, 1), (2, 2), (3, 2), (4, 1), (5, 2)]:
+        src.offer(Event(ts, key, None))
+    src.offer(Watermark(10))                   # closes frame 10 of both keys
+    full, other = SPSCQueue(1), SPSCQueue(8)
+    full.offer("occupied")
+    p2q = [1] * PARTITION_COUNT
+    p2q[hash(1) % PARTITION_COUNT] = 0         # key 1 -> the full queue
+    acc = AccumulateByFrameProcessor(wdef, counting())
+    t = ProcessorTasklet("acc", acc, [InQueue(src, 0)],
+                         [EdgeCollector([full, other], Routing.PARTITIONED,
+                                        None, p2q)],
+                         SnapshotContext(GUARANTEE_EXACTLY_ONCE), "acc", 0)
+    acc.init(t.outbox, None)
+    for _ in range(4):
+        t.call()
+    assert other.poll() is None, "the watermark overtook the held partial"
+    assert full.poll() == "occupied"           # the consumer catches up
+    for _ in range(4):
+        t.call()
+    first = [full.poll(), full.poll()]
+    assert first[0].value == (10, 2) and first[1] is None
+    tail = []
+    while (item := other.poll()) is not None:
+        tail.append(item)
+    assert [type(x).__name__ for x in tail] == ["Event", "Watermark"]
+    assert tail[0].key == 2 and tail[0].value == (10, 3)
+    assert full.poll() is None
+    for _ in range(2):
+        t.call()
+    assert isinstance(full.poll(), Watermark)  # after key 1's partial
+
+    # the combine of the second queue counts key 2's three events
+    comb = CombineFramesProcessor(wdef, counting())
+    out = SPSCQueue(16)
+    c = ProcessorTasklet("comb", comb, [InQueue(SPSCQueue(8), 0)],
+                         [EdgeCollector([out], Routing.ISOLATED, None)],
+                         SnapshotContext(GUARANTEE_EXACTLY_ONCE), "comb", 0)
+    comb.init(c.outbox, None)
+    for item in tail:
+        c.in_queues[0].q.offer(item)
+    for _ in range(4):
+        c.call()
+    res = out.poll()
+    assert res.value.window_end == 10 and res.value.value == 3

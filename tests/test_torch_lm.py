@@ -32,7 +32,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.kernels import ops, ref  # noqa: E402
 from repro.launch.serve import BatchedLMServer as JaxServer  # noqa: E402
 from repro.models import lm as jax_lm, transformer as jax_tf  # noqa: E402
-from repro_torch.configs import REGISTRY, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, kernel_config, split_plan)
@@ -44,7 +44,7 @@ from repro_torch.models.convert import (  # noqa: E402
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
-ROADMAP = "ROADMAP.md §1, queue item 2"
+ROADMAP = "ROADMAP.md §1, queue item 5"
 
 
 def _np_tree(tree):
@@ -363,23 +363,7 @@ def test_init_params_has_reference_tree_and_scales(arch):
 
 def _unsupported_cases():
     qwen = get_config("qwen2-1.5b").reduced()
-    gen = torch.Generator().manual_seed(0)
-
-    def init(cfg):
-        return lambda: lm.init_params(cfg, gen, device="cpu")
-
-    return {
-        "mamba": init(REGISTRY["jamba-v0.1-52b"].reduced()),
-        "rwkv6": init(REGISTRY["rwkv6-7b"].reduced()),
-        "moe": init(REGISTRY["phi3.5-moe-42b-a6.6b"].reduced()),
-        "swa": init(dataclasses.replace(qwen, attention="swa")),
-        "int8_cache": lambda: lm.init_cache(qwen, 2, 8, torch.int8,
-                                            device="cpu"),
-        "full_sequence": lambda: transformer.forward(
-            qwen, None, tokens=torch.zeros(1, 4, dtype=torch.int32)),
-        "modality_embeds": lambda: transformer.prefill(
-            qwen, None, embeds=torch.zeros(1, 4, qwen.d_model)),
-    }
+    return {"make_train_step": lambda: lm.make_train_step(qwen, None)}
 
 
 @pytest.mark.parametrize("case", sorted(_unsupported_cases()))

@@ -49,7 +49,9 @@ def test_importing_every_module_loads_no_jax_or_reference():
                  "repro_torch.nexmark.queries", "repro_torch.core.shm_ring",
                  "repro_torch.runtime.worker_proc",
                  "repro_torch.runtime.chaos", "repro_torch.snapshot.sinks",
-                 "repro_torch.snapshot.active_active"):
+                 "repro_torch.snapshot.active_active",
+                 "repro_torch.models.moe", "repro_torch.models.mamba",
+                 "repro_torch.models.rwkv6"):
         assert name in modules, name
     script = textwrap.dedent(f"""
         import importlib, sys

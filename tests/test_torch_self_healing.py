@@ -31,6 +31,7 @@ from repro_torch.core.engine import (  # noqa: E402
     JOB_COMPLETED, JOB_FAILED, RestartPolicy)
 from repro_torch.nexmark import NexmarkGenerator, queries  # noqa: E402
 from repro_torch.runtime.supervisor import WorkerSupervisor  # noqa: E402
+from repro_torch.runtime import worker_proc  # noqa: E402
 from repro_torch.runtime.worker_proc import (  # noqa: E402
     MpSnapshotContext, MultiprocessBackend, _kill_handle_hard)
 
@@ -140,6 +141,21 @@ def test_mp_error_exit_detected_with_traceback(clean):
     assert job.auto_restarts >= 1
     errors = [f for f in job.failures if f.kind == FAILURE_ERROR]
     assert errors and "chaos-injected" in errors[0].detail
+
+
+def test_kill_right_after_a_commit_keeps_the_results_before_it(
+        clean, monkeypatch):
+    """F7 (ROADMAP.md §3): a worker killed after its snapshot committed
+    took with it the results its sinks had collected before the barrier
+    but not yet shipped (they go out every ``_RESULT_SHIP_S``), and the
+    restore from that snapshot never replays them.  Shipping held back
+    (the interval made huge; the forked workers inherit it) makes the
+    interleaving certain: the results before the barrier must ship with
+    the ack."""
+    monkeypatch.setattr(worker_proc, "_RESULT_SHIP_S", 1e9)
+    results, job, _ = _run_q5_fault("mp", fault="kill", fault_at=0)
+    assert job.auto_restarts >= 1
+    assert results == clean[0]
 
 
 def test_mp_hung_worker_detected_and_healed(clean):
