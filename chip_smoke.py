@@ -10,7 +10,8 @@ CUDA card and the CUDA toolkit:
 host with 4 cards: the ranks over NCCL, a card each); ``python3
 chip_smoke.py --engine`` runs phases 1, 2 and 10 alone; ``python3
 chip_smoke.py --faults`` runs phases 1, 2 and 12 alone; ``python3
-chip_smoke.py --lm`` runs phases 1, 2 and 13 alone.
+chip_smoke.py --lm`` runs phases 1, 2 and 13 alone; ``python3
+chip_smoke.py --train`` runs phases 1, 2 and 14 alone.
 
 It drives six paths of the port: device-tier NEXMark Q5 on one card
 (``window_agg``'s library: one fused ``accumulate`` launch a step), LM
@@ -20,12 +21,14 @@ a step), the paper's main path: ``queries.q5(placement="device")``
 through the port's host engine into its ``DeviceWindowProcessor`` (one
 ``accumulate`` a device step), and that path through seeded faults, a
 durable snapshot chain and a cold start (one ``accumulate`` a device
-step, the replays included), and every LM family of the registry
+step, the replays included), every LM family of the registry
 (``decode_attention`` on every attention layer's decode, the rolling and
-the linear sliding-window caches and the int8 cache included).  The
+the linear sliding-window caches and the int8 cache included), and
+training (no kernel: the gradients come from autograd over the plain
+modules, as the reference's come from ``jax.value_and_grad``).  The
 ``window_agg`` op, ``route_counts`` and ``route_offsets`` are held in
 phases 3 and 11 as the TPU kernels' counterparts and launch on no path.
-Phases, in order of number; phases 12 and 13 run between 10 and 11,
+Phases, in order of number; phases 12 to 14 run between 10 and 11,
 before 11's profiler slows every launch after it.  Any failure ends
 the run with a non-zero exit and no result line:
 
@@ -83,8 +86,8 @@ the run with a non-zero exit and no result line:
     ptxas' registers, spills and shared memory of the new kernels and
     route_pack's cluster; then a profiled stretch of each path (device
     time by kernel, the device's idle share; Q5 also with the plain
-    accumulate) — last, because the profiler slows every launch after
-    it;
+    accumulate; one full-width train step of phase 14 (a)) — last,
+    because the profiler slows every launch after it;
 12. fault tolerance: (a) phase 10 (a)'s stream with device placement on
     two nodes, exactly-once, a durable snapshot chain and its output
     through a transactional and an idempotent sink into an external
@@ -121,6 +124,18 @@ the run with a non-zero exit and no result line:
     float32, card against CPU, 8 teacher-forced steps, and rwkv6's
     prefill then a decode step against a prefill one token longer, on the
     card;
+14. training: (a) olmo-1b at full width (16 layers, d_model 2048, vocab
+    50 304) at the reference's train_4k sequence of 4 096, the batch cut
+    from 256 to 8 in 2 microbatches, float32 parameters and AdamW, bf16
+    compute, remat "nothing": 10 steps from ``launch/train.py``'s step
+    builder on ``SyntheticLMData``, every loss and grad norm finite and
+    the last loss below the first; it prints ms a step, tokens/s, peak
+    memory and the model FLOPs' share of the bf16 peak; (b) reduced
+    olmo-1b, mixtral-8x7b and jamba in float32, 2 steps from one state on
+    the card and on the CPU, loss, grad norm, parameters and AdamW's
+    moments within 1e-4; (c) ``launch.train.main --resume`` on the card (6
+    straight steps against 3 + 3, rel 1e-4), and an async checkpoint
+    followed at once by a step restores the state at the save exactly;
 
 then the numbers line, the kernels line, the card line, and last the
 result line ``{"ok": true, "device": {...}}``.
@@ -177,13 +192,17 @@ from repro_torch.kernels.window_agg import (  # noqa: E402
     accumulate_, accumulate_plain_, window_agg, window_agg_plain_into_)
 from repro_torch.launch.mesh import (  # noqa: E402
     make_data_mesh, spawn_ranks)
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import lm, transformer  # noqa: E402
 from repro_torch.models.layers import apply_norm, apply_rope  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
-    params_from_numpy, params_to_numpy)
+    opt_state_from_numpy, opt_state_to_numpy, params_from_numpy,
+    params_to_numpy)
 from repro_torch.nexmark import NexmarkGenerator, queries  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.runtime.data import SyntheticLMData  # noqa: E402
 from repro_torch.runtime.worker_proc import (  # noqa: E402
     MultiprocessBackend)
 from repro_torch.runtime.chaos import (  # noqa: E402
@@ -2869,6 +2888,269 @@ def lm_path(dev) -> dict:
     return res
 
 
+# -- phase 14 ----------------------------------------------------------------
+# the training half: olmo-1b (configs/olmo_1b.py, the model the reference's
+# train driver names) at full width at the reference's train_4k shape
+# (configs/__init__.py: seq 4 096, global batch 256), the batch cut to 8
+# (one card, a smoke run's time); float32 parameters and AdamW, bf16
+# compute, remat "nothing", 2 microbatches of 4
+TRAIN_ARCH = "olmo-1b"
+TRAIN_SEQ, TRAIN_BATCH = SHAPES["train_4k"].seq_len, 8
+TRAIN_MICRO, TRAIN_STEPS = 2, 10
+#: the step time is the p50 of steps 3 to 10 (1 and 2 warm the allocator)
+TRAIN_TIMED_FROM = 2
+#: card against CPU, float32, TRAIN_CPU_STEPS steps from one state at
+#: batch 2 and seq 32: the loss and the grad norm at rtol TRAIN_RTOL; mu
+#: and nu at rtol TRAIN_RTOL with an atol of TRAIN_RTOL of the tree's
+#: largest magnitude, as tests/test_torch_train.py holds the CPU to the
+#: JAX package; the parameters at rtol = atol = TRAIN_RTOL, but for the
+#: entries whose mu on the CPU lies within TRAIN_RTOL of its array's
+#: largest of 0 after the step (and is not exactly 0 on both sides): the
+#: sign of their gradient is rounding, and AdamW's normalised step (about
+#: lr * sign(g) early on) may then move them apart by up to 2 * TRAIN_LR
+TRAIN_LR = 3e-4
+TRAIN_CPU_ARCHS = ("olmo-1b", "mixtral-8x7b", "jamba-v0.1-52b")
+TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_STEPS = 2, 32, 2
+TRAIN_RTOL = 1e-4
+#: resume: RESUME_STEPS straight against half, a save, a fresh state and
+#: the other half (tests/test_sinks_and_ft_extras.py's rel 1e-4)
+RESUME_STEPS = 6
+
+
+def train_full(dev) -> dict:
+    """(a): TRAIN_STEPS steps of olmo-1b at full width from
+    ``launch/train.py``'s step builder on ``SyntheticLMData``: every loss
+    and grad norm finite, the last loss below the first; ms a step, tokens
+    a second, peak memory, model FLOPs a step and their share of the
+    card's bf16 dense peak."""
+    free_card()
+    # the peak over what earlier phases still hold (phase 7's weights)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    state, step_fn = train_mod.make_trainer(
+        cfg, steps=TRAIN_STEPS, compute_dtype=torch.bfloat16,
+        microbatches=TRAIN_MICRO, remat_policy="nothing", seed=0, device=dev)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    metrics, step_ms = [], []
+    zero_counts()
+    for step in range(TRAIN_STEPS):
+        batch = train_mod.batch_on(data.batch_at(step), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = launch_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"train: non-finite loss or grad norm: "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if int(state["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"train: step {int(state['step'])}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = float(np.percentile(step_ms[TRAIN_TIMED_FROM:], 50))
+    # 6 N a token for the products with the weights (the tied head
+    # included), and the attention's two S x S products, forward and
+    # backward, at the full S x S the path computes (it masks, it does not
+    # skip); the remat recompute is not model work
+    flops = (6 * n_params * tokens + 12 * TRAIN_BATCH * TRAIN_SEQ ** 2
+             * cfg.n_heads * cfg.head_dim_ * cfg.n_layers)
+    res = {"arch": TRAIN_ARCH, "params": n_params, "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+           "remat_policy": "nothing", "steps": TRAIN_STEPS,
+           "step_ms": step_ms, "step_ms_p50": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "grad_norms": norms,
+           "model_flops_per_step": flops,
+           "bf16_peak_share": flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+           "launches": launches}
+    log(f"train olmo-1b full width, seq {TRAIN_SEQ} batch {TRAIN_BATCH} "
+        f"({TRAIN_MICRO} microbatches): {ms:.1f} ms a step (p50 of steps "
+        f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS}), "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak "
+        f"{res['peak_memory_bytes'] / 1e9:.2f} GB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, grad norm {norms[0]:.3f} -> {norms[-1]:.3f}, "
+        f"{flops / 1e12:.1f} TFLOP a step, {res['bf16_peak_share']:.4f} of "
+        f"the bf16 dense peak")
+    del state, step_fn, metrics
+    free_card()
+    return res
+
+
+def _np_leaves(t) -> list:
+    """The arrays of a numpy tree (dicts by sorted key, tuples in order)."""
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _np_leaves(t[k])]
+    if isinstance(t, tuple):
+        return [x for v in t for x in _np_leaves(v)]
+    return [np.asarray(t, np.float64)]
+
+
+def _tree_violation(got, want, atol=None) -> float:
+    """The largest ``|got - want| / (atol + TRAIN_RTOL |want|)`` over two
+    numpy trees of one structure (below 1: within tolerance); ``atol``
+    defaults to TRAIN_RTOL of the tree's largest magnitude."""
+    g, w = _np_leaves(got), _np_leaves(want)
+    if len(g) != len(w) or any(a.shape != b.shape for a, b in zip(g, w)):
+        raise AssertionError("train: trees of different structure")
+    if atol is None:
+        atol = TRAIN_RTOL * max(float(np.abs(b).max()) for b in w if b.size)
+    if atol == 0:
+        return max(float((a != b).any()) for a, b in zip(g, w))
+    return max(float((np.abs(a - b) / (atol + TRAIN_RTOL * np.abs(b))).max())
+               for a, b in zip(g, w) if b.size)
+
+
+@torch.no_grad()
+def copy_train_state_(dst: dict, src: dict) -> None:
+    """Every tensor of the train state ``src`` into ``dst``'s, in place."""
+    for name, p in dst["params"].named_parameters():
+        p.copy_(src["params"].get_parameter(name))
+    for k in ("mu", "nu"):
+        for name, t in dst["opt"][k].items():
+            t.copy_(src["opt"][k][name])
+    dst["opt"]["count"].copy_(src["opt"]["count"])
+    dst["step"].copy_(src["step"])
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """(b): reduced olmo-1b, mixtral-8x7b (MoE aux, the index_put_
+    backward) and jamba (the Mamba scan's backward), float32,
+    TRAIN_CPU_STEPS steps on the card and on the CPU, each from one state
+    (the card takes the CPU's state after each comparison, so a comparison
+    sees one step's rounding, not AdamW's amplification of the step
+    before): the loss, the grad norm, every parameter, mu and nu within
+    TRAIN_RTOL (see there)."""
+    res = {}
+    for arch in TRAIN_CPU_ARCHS:
+        cfg = get_config(arch).reduced()
+        cpu, step_fn = train_mod.make_trainer(
+            cfg, steps=10, lr=TRAIN_LR, compute_dtype=torch.float32, seed=9,
+            device="cpu")
+        card = {"params": params_from_numpy(
+                    cfg, params_to_numpy(cfg, cpu["params"]), dev),
+                "opt": opt_state_from_numpy(
+                    cfg, opt_state_to_numpy(cfg, cpu["opt"]), dev),
+                "step": cpu["step"].clone().to(dev)}
+        data = SyntheticLMData(cfg.vocab_size, TRAIN_CPU_B, TRAIN_CPU_S,
+                               seed=9)
+        worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0, "mu": 0.0,
+                 "nu": 0.0}
+        free = 0
+        for step in range(TRAIN_CPU_STEPS):
+            batch = data.batch_at(step)
+            card, mc = step_fn(card, train_mod.batch_on(batch, dev))
+            cpu, mh = step_fn(cpu, train_mod.batch_on(batch, "cpu"))
+            for k in ("loss", "grad_norm"):
+                a, b = float(mc[k]), float(mh[k])
+                worst[k] = max(worst[k], abs(a - b) / (TRAIN_RTOL * abs(b)))
+            oc = opt_state_to_numpy(cfg, card["opt"])
+            oh = opt_state_to_numpy(cfg, cpu["opt"])
+            for k in ("mu", "nu"):
+                worst[k] = max(worst[k], _tree_violation(oc[k], oh[k]))
+            mu, mu_card = _np_leaves(oh["mu"]), _np_leaves(oc["mu"])
+            # within TRAIN_RTOL of the array's largest of 0, but for exact
+            # zeros on both sides (no gradient: an expert no token chose)
+            near0 = [(np.abs(m) <= TRAIN_RTOL * np.abs(m).max())
+                     & ((m != 0) | (c != 0)) for m, c in zip(mu, mu_card)]
+            free += sum(int(n.sum()) for n in near0)
+            for a, b, f in zip(_np_leaves(params_to_numpy(cfg, card["params"])),
+                               _np_leaves(params_to_numpy(cfg, cpu["params"])),
+                               near0):
+                tol = np.where(f, 2 * TRAIN_LR, TRAIN_RTOL) \
+                    + TRAIN_RTOL * np.abs(b)
+                worst["params"] = max(worst["params"],
+                                      float((np.abs(a - b) / tol).max()))
+            if {int(card["step"]), int(cpu["step"])} != {step + 1}:
+                raise AssertionError(f"train {arch}: step counts differ")
+            copy_train_state_(card, cpu)
+        if not all(v < 1 for v in worst.values()):
+            raise AssertionError(f"train {arch}: card against CPU beyond "
+                                 f"tolerance (ratio to it): {worst}")
+        res[arch] = {"tolerance_ratio": worst, "loss": float(mc["loss"]),
+                     "sign_free_entries": free,
+                     "entries": TRAIN_CPU_STEPS * sum(
+                         p.numel() for p in cpu["params"].parameters())}
+        del card, cpu
+        free_card()
+    log(f"train card against CPU, float32, {TRAIN_CPU_STEPS} steps, within "
+        f"rtol {TRAIN_RTOL} (largest error over tolerance): {json.dumps(res)}")
+    return res
+
+
+def train_resume(dev) -> dict:
+    """(c): ``launch.train.main`` on the card, reduced olmo-1b:
+    RESUME_STEPS straight steps against half of them, an async save, a
+    fresh state and the rest with ``--resume`` (last losses within rel
+    1e-4); then an async save followed at once by a step, and a restore:
+    the state at the save, exactly."""
+    res = {}
+    half = RESUME_STEPS // 2
+    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
+        common = ["--arch", TRAIN_ARCH, "--reduced", "--batch", "2",
+                  "--seq", "32", "--device", str(dev)]
+        straight = train_mod.main(common + [
+            "--steps", str(RESUME_STEPS), "--log-every", str(RESUME_STEPS),
+            "--ckpt-dir", f"{tmp}/a", "--ckpt-every", "100"])
+        train_mod.main(common + [
+            "--steps", str(half), "--schedule-steps", str(RESUME_STEPS),
+            "--log-every", str(half), "--ckpt-dir", f"{tmp}/b",
+            "--ckpt-every", str(half)])
+        resumed = train_mod.main(common + [
+            "--steps", str(RESUME_STEPS), "--log-every", str(RESUME_STEPS),
+            "--ckpt-dir", f"{tmp}/b", "--ckpt-every", "100", "--resume"])
+        rel = abs(straight[-1] - resumed[-1]) / abs(straight[-1])
+        if not rel <= 1e-4:
+            raise AssertionError(f"train resume: {straight} against "
+                                 f"{resumed}")
+        res["resume"] = {"straight": straight[-1], "resumed": resumed[-1],
+                         "rel": rel}
+
+        cfg = get_config(TRAIN_ARCH).reduced()
+        state, step_fn = train_mod.make_trainer(
+            cfg, steps=10, compute_dtype=torch.float32, device=dev)
+        data = SyntheticLMData(cfg.vocab_size, 2, 32)
+        state, _ = step_fn(state, train_mod.batch_on(data.batch_at(0), dev))
+        at_save = (params_to_numpy(cfg, state["params"]),
+                   opt_state_to_numpy(cfg, state["opt"]))
+        mgr = CheckpointManager(f"{tmp}/c", async_save=True)
+        mgr.save(state, 1)
+        state, _ = step_fn(state, train_mod.batch_on(data.batch_at(1), dev))
+        mgr.wait()
+        fresh, _ = train_mod.make_trainer(
+            cfg, steps=10, compute_dtype=torch.float32, seed=1, device=dev)
+        restored = mgr.restore(fresh)
+        got = (params_to_numpy(cfg, restored["params"]),
+               opt_state_to_numpy(cfg, restored["opt"]))
+        if _tree_violation(got, at_save, atol=0) or \
+                int(restored["step"]) != 1:
+            raise AssertionError("train: the async save did not restore the "
+                                 "state at the save")
+        res["async_save_exact"] = True
+    log(f"train resume on the card: {json.dumps(res)}")
+    return res
+
+
+def train_path(dev) -> dict:
+    """Phase 14: (a) olmo-1b at full width, (b) card against CPU, (c)
+    resume and the async save."""
+    t0 = time.perf_counter()
+    res = {"full_width": train_full(dev)}
+    res["card_vs_cpu"] = train_card_vs_cpu(dev)
+    res["resume"] = train_resume(dev)
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"train: phase 14 in {res['wall_s']:.1f} s")
+    return res
+
+
 # -- phase 11 ----------------------------------------------------------------
 def route_timing_cases(dev):
     """Each route kernel at the 4-rank path's shape (rank 0's slice of a Q5
@@ -3112,6 +3394,45 @@ def profile_main_path(dev, wall_ms_per_step: float, n_steps: int = 50,
     return res
 
 
+def profile_train(dev, wall_ms_per_step: float) -> dict:
+    """Where a full-width train step's time goes: phase 14 (a)'s step
+    (olmo-1b, seq 4 096, batch 8 in 2 microbatches) profiled once, device
+    time by kernel against the unprofiled run's p50 wall time a step; the
+    products' device time split into IEEE f32 products on CUDA cores
+    (cuBLAS's ``f32f32`` and CUTLASS's ``sgemm`` kernels: the attention's
+    S x S products of f32 scores) and the rest (the bf16 products, cuBLAS's
+    ``nvjet`` kernels on Hopper)."""
+    free_card()
+    cfg = get_config(TRAIN_ARCH)
+    state, step_fn = train_mod.make_trainer(
+        cfg, steps=TRAIN_STEPS, compute_dtype=torch.bfloat16,
+        microbatches=TRAIN_MICRO, remat_policy="nothing", seed=0, device=dev)
+    batch = train_mod.batch_on(SyntheticLMData(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0), dev)
+    kernels = profiled(lambda: step_fn(state, batch), iters=1)
+    busy = sum(ms for ms, _ in kernels.values())
+    gemm = {"f32": 0.0, "other": 0.0}
+    for name, (ms, _) in kernels.items():
+        low = name.lower()
+        if "f32f32" in low or "sgemm" in low:
+            gemm["f32"] += ms
+        elif "gemm" in low or "nvjet" in low or "xmma" in low:
+            gemm["other"] += ms
+    res = {"wall_ms_per_step": wall_ms_per_step, "device_ms_per_step": busy,
+           "device_idle_share": 1 - busy / wall_ms_per_step,
+           "device_launches_per_step": sum(c for _, c in kernels.values()),
+           "gemm_f32_ms": gemm["f32"], "gemm_other_ms": gemm["other"],
+           "not_gemm_ms": busy - gemm["f32"] - gemm["other"]}
+    log(f"train step: {json.dumps(res)}; top device time:")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, launches) in top:
+        log(f"  {ms:.2f} ms  x{launches:.0f}  {name[:100]}")
+    res["top"] = [[name[:100], ms, c] for name, (ms, c) in top]
+    del state, step_fn
+    free_card()
+    return res
+
+
 def attention_bound(b, h, hk, n_valid, dh, dtype):
     """The least time for decode_attention's work: each of the n_valid
     cached rows of k and v read once, q read and the f32 output written
@@ -3347,6 +3668,15 @@ def lm_only(name: str, smi: str) -> int:
     return 0
 
 
+def train_only(name: str, smi: str) -> int:
+    """``--train``: phase 14 alone, after the card and the build."""
+    print(json.dumps({"train": train_path(torch.device("cuda"))}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mp-faults"] and len(sys.argv) == 3:
         return mp_faults_child(Path(sys.argv[2]))
@@ -3365,6 +3695,8 @@ def main() -> int:
         return faults_only(name, smi)
     if sys.argv[1:] == ["--lm"]:
         return lm_only(name, smi)
+    if sys.argv[1:] == ["--train"]:
+        return train_only(name, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -3394,6 +3726,7 @@ def main() -> int:
     # after it
     faults = faults_path(dev)
     lms = lm_path(dev)
+    trains = train_path(dev)
     attn["launches_by_path"] = {
         "serve_qwen2": serve["decode_attention_launches"],
         "lm_mixtral": lms["mixtral"]["decode_attention_launches"],
@@ -3402,6 +3735,8 @@ def main() -> int:
         "lm_int8_cache": lms["int8_cache"]["decode_attention_launches"],
         "lm_linear_swa": lms["int8_cache"]["linear_swa"][
             "decode_attention_launches"]}
+    attn["launches_by_path"]["train_olmo"] = trains["full_width"][
+        "launches"]["decode_attention"]
     attn["launches"] = sum(attn["launches_by_path"].values())
     acc["launches_by_path"] = {
         "q5_run_stream": path["launches"]["accumulate"],
@@ -3410,8 +3745,16 @@ def main() -> int:
         "engine_paced": engine["paced"]["accumulate_launches"],
         "faults_reference_stream":
             faults["reference_stream"]["accumulate_launches"],
-        "faults_paper_shape": faults["paper_shape"]["accumulate_launches"]}
+        "faults_paper_shape": faults["paper_shape"]["accumulate_launches"],
+        "train_olmo": trains["full_width"]["launches"]["accumulate"]}
     acc["launches"] = sum(acc["launches_by_path"].values())
+    window["launches_by_path"] = {
+        "q5_run_stream": path["launches"]["window_agg"],
+        "train_olmo": trains["full_width"]["launches"]["window_agg"]}
+    for entry in routes:
+        entry["launches_by_path"] = {
+            "q5_ranks_route": entry["launches"],
+            "train_olmo": trains["full_width"]["launches"][entry["name"]]}
     # phase 11: event timings first, then the profiler
     ab = q5_wall_ab(dev)
     attn.update(time_decode_attention(dev))
@@ -3429,6 +3772,8 @@ def main() -> int:
     prof = profile_main_path(dev, ab["fused_ms"])
     prof_plain = profile_main_path(dev, ab["plain_ms"], plain=True)
     serve_prof = profile_serve(dev, cfg, params, step_ms)
+    del params
+    train_prof = profile_train(dev, trains["full_width"]["step_ms_p50"])
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s")
     print(json.dumps({"main_path": path, "latency": lat, "summing": summ,
@@ -3436,8 +3781,10 @@ def main() -> int:
                       "profile_plain_accumulate": prof_plain,
                       "serve": serve, "serve_tf32": tf32,
                       "serve_card_vs_cpu": vs_cpu,
-                      "serve_profile": serve_prof, "q5_ranks": ranks,
+                      "serve_profile": serve_prof,
+                      "train_profile": train_prof, "q5_ranks": ranks,
                       "engine": engine, "faults": faults, "lm": lms,
+                      "train": trains,
                       "total_s": total}))
     print(json.dumps({"kernels": [window, acc, attn, *routes]}))
     print(smi)

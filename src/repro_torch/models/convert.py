@@ -6,7 +6,9 @@ block per layer.  Layer ``l`` is group ``l // g``, block ``l % g`` of a
 group of ``g = len(cfg.layer_kinds())`` layers.  Tensors keep the
 reference's ``(in, out)`` layout, so the carry-over is a copy, never a
 transpose.  ``jax.tree.map(np.asarray, tree)`` of a reference tree is what
-the ``*_from_numpy`` functions take, and what ``*_to_numpy`` give back.
+the ``*_from_numpy`` functions take, and what ``*_to_numpy`` give back:
+parameters, caches and AdamW's state (``mu`` and ``nu`` in the
+parameters' layout, by parameter name in the port).
 Every family's blocks carry across: an RWKV-6 block has no ``ffn``, an MoE
 ``ffn`` holds stacked ``(E, D, F)`` experts and a float32 router, and the
 caches hold ``{k, v}`` (int8 with float16 ``k_scale``, ``v_scale``),
@@ -20,7 +22,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .transformer import Transformer
+from .transformer import SUBS, Transformer, layer_kinds
 
 
 def _tensor(a, device, dtype, kinds: str = "f") -> torch.Tensor:
@@ -57,23 +59,55 @@ def params_from_numpy(cfg, tree: Dict, device=None, dtype=None
 
 def params_to_numpy(cfg, params: Transformer) -> Dict:
     """The reference's parameter tree (groups stacked) as numpy arrays."""
+    return _tree_of(cfg, dict(params.named_parameters()))
+
+
+def _tree_of(cfg, named: Dict[str, torch.Tensor]) -> Dict:
+    """The reference's tree (groups stacked) of tensors named as the
+    port's ``named_parameters()`` names them, as numpy arrays of their own
+    (the training step updates its tensors in place)."""
     def n(x):
-        return x.detach().cpu().numpy()
+        return x.detach().cpu().numpy().copy()
 
     g = len(cfg.layer_kinds())
     groups = {}
     for i in range(g):
-        layers = [params.blocks[l].tensors()
-                  for l in range(i, cfg.n_layers, g)]
-        groups[f"b{i}"] = {sub: {name: np.stack([n(b[sub][name])
-                                                 for b in layers])
-                                 for name in layers[0][sub]}
-                           for sub in layers[0]}
-    tree = {"embed": n(params.embed), "groups": groups,
-            "final_norm": {k: n(v) for k, v in params.final_norm.items()}}
+        # every sub of the block, a parameter-free norm's {} included
+        subs = SUBS[:3] if layer_kinds(cfg, i)[0] == "rwkv6" else SUBS
+        groups[f"b{i}"] = {sub: {} for sub in subs}
+        prefix = f"blocks.{i}."
+        for name in named:
+            if name.startswith(prefix):
+                sub, leaf = name[len(prefix):].split(".")
+                groups[f"b{i}"][sub][leaf] = np.stack(
+                    [n(named[f"blocks.{l}.{sub}.{leaf}"])
+                     for l in range(i, cfg.n_layers, g)])
+    tree = {"embed": n(named["embed"]), "groups": groups,
+            "final_norm": {name.split(".", 1)[1]: n(t)
+                           for name, t in named.items()
+                           if name.startswith("final_norm.")}}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = n(params.lm_head)
+        tree["lm_head"] = n(named["lm_head"])
     return tree
+
+
+def opt_state_from_numpy(cfg, tree: Dict, device=None) -> Dict:
+    """The port's AdamW state (``runtime.optimizer.AdamW.init``'s layout:
+    ``mu`` and ``nu`` by parameter name, ``count`` 0-d int32) from the
+    reference's (``{"mu", "nu"}`` as parameter trees of numpy arrays,
+    ``count`` an int32 scalar)."""
+    def moments(t):
+        named = params_from_numpy(cfg, t, device, torch.float32)
+        return {n: p.detach() for n, p in named.named_parameters()}
+
+    return {"mu": moments(tree["mu"]), "nu": moments(tree["nu"]),
+            "count": _tensor(tree["count"], device, torch.int32, kinds="i")}
+
+
+def opt_state_to_numpy(cfg, opt: Dict) -> Dict:
+    """The reference's AdamW state as numpy arrays, from the port's."""
+    return {"mu": _tree_of(cfg, opt["mu"]), "nu": _tree_of(cfg, opt["nu"]),
+            "count": opt["count"].cpu().numpy().copy()}
 
 
 def cache_from_numpy(cfg, tree: Dict, device=None

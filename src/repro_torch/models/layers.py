@@ -9,10 +9,12 @@ time (Mamba, RWKV-6).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def normal_init(gen: torch.Generator, shape, scale: float, dtype,
@@ -96,15 +98,36 @@ def chunked_time_scan(step: Callable, init, xs, chunk: int = 256
     """``carry, y = step(carry, x_t)`` over the time-major leading axis of
     ``xs`` (a tensor or a tuple of tensors); returns ``(carry, ys)`` with
     ``ys`` stacked time-major (a tensor, or a tuple where ``step`` returns
-    one).  The reference scans in chunks only to rematerialise the carry
-    in the backward pass (``layers.py:73-97``); the forward result does not
-    depend on ``chunk``, which is kept for the signature."""
+    one).
+
+    As in the reference (``layers.py:73-97``), time runs in chunks of
+    ``chunk`` steps (halved until it divides the length), and where a
+    graph is built each chunk is checkpointed: the backward pass keeps the
+    carry only at chunk boundaries and runs a chunk again to get its
+    steps', O(T / chunk + chunk) carries instead of O(T).  The values do
+    not depend on ``chunk``."""
     seq = xs if isinstance(xs, tuple) else (xs,)
-    carry, ys = init, []
-    for t in range(seq[0].shape[0]):
-        x_t = tuple(x[t] for x in seq)
-        carry, y = step(carry, x_t if isinstance(xs, tuple) else x_t[0])
-        ys.append(y)
-    if ys and isinstance(ys[0], tuple):
-        return carry, tuple(torch.stack(y) for y in zip(*ys))
-    return carry, torch.stack(ys)
+    T = seq[0].shape[0]
+    c = min(chunk, T)
+    while T % c:
+        c //= 2
+
+    def run(carry, *x_chunk):
+        ys = []
+        for t in range(x_chunk[0].shape[0]):
+            x_t = tuple(x[t] for x in x_chunk)
+            carry, y = step(carry, x_t if isinstance(xs, tuple) else x_t[0])
+            ys.append(y)
+        if isinstance(ys[0], tuple):
+            return carry, tuple(torch.stack(y) for y in zip(*ys))
+        return carry, torch.stack(ys)
+
+    if torch.is_grad_enabled() and any(x.requires_grad for x in seq):
+        run = functools.partial(checkpoint, run, use_reentrant=False)
+    carry, chunks = init, []
+    for lo in range(0, T, c):
+        carry, ys = run(carry, *(x[lo:lo + c] for x in seq))
+        chunks.append(ys)
+    if isinstance(chunks[0], tuple):
+        return carry, tuple(torch.cat(y) for y in zip(*chunks))
+    return carry, torch.cat(chunks)

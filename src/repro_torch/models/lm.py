@@ -1,21 +1,24 @@
-"""LM task heads: the loss, the prefill and the serve step, in PyTorch.
+"""LM task heads: the loss, the train step, the prefill and the serve step,
+in PyTorch.
 
 The port of ``repro/models/lm.py``: ``cross_entropy`` and ``loss_fn``
-(with ``MOE_AUX_COEF`` and ``IGNORE_INDEX``), ``make_prefill`` and
-``make_serve_step``.  ``make_train_step`` waits for the training loop
-(ROADMAP.md §1, queue item 5) and raises.
+(with ``MOE_AUX_COEF`` and ``IGNORE_INDEX``), ``make_train_step``,
+``make_prefill``, ``make_serve_step`` and ``global_norm``.  The reference
+takes its gradients with ``jax.value_and_grad`` over jnp code; the port
+takes them with autograd over the same plain PyTorch modules.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
+from ..devices import ieee_fp32_matmul
 from . import transformer
 
 MOE_AUX_COEF = 0.01
 IGNORE_INDEX = -100
-#: where the training half is queued
-TRAIN_ITEM = "ROADMAP.md §1, queue item 5"
 
 
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
@@ -35,28 +38,93 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     (``lm.py:25-45``: max-shifted log-sum-exp minus the gold logit)."""
     mask = labels != IGNORE_INDEX
     safe = torch.where(mask, labels, torch.zeros_like(labels))
-    shifted = logits - logits.amax(dim=-1, keepdim=True)
+    # the row max as a constant (the reference's stop_gradient)
+    shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
     logz = torch.log(torch.exp(shifted).sum(dim=-1))
     gold = shifted.gather(-1, safe[..., None].long())[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
-def loss_fn(cfg, params, batch, compute_dtype=torch.bfloat16):
+def loss_fn(cfg, params, batch, compute_dtype=torch.bfloat16,
+            remat_policy: str = "nothing"):
     """``(loss, {"ce_loss", "moe_aux"})``: cross-entropy plus
     ``MOE_AUX_COEF`` times the MoE load-balancing loss.  ``batch`` holds
     "tokens" or "embeds", and "labels"."""
     logits, aux = transformer.forward(
         cfg, params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, remat_policy=remat_policy)
     loss = cross_entropy(logits, batch["labels"])
     return loss + MOE_AUX_COEF * aux, {"ce_loss": loss, "moe_aux": aux}
 
 
-def make_train_step(cfg, optimizer, compute_dtype=torch.bfloat16, **kw):
-    raise NotImplementedError(f"the train step is not ported yet: it needs "
-                              f"the optimizer and the training loop "
-                              f"({TRAIN_ITEM})")
+def make_train_step(cfg, optimizer, compute_dtype=torch.bfloat16,
+                    remat_policy: str = "nothing", grad_transform=None,
+                    microbatches: int = 1):
+    """Returns ``step(state, batch) -> (state, metrics)``.
+
+    ``state`` = ``{"params": Transformer, "opt": optimizer state, "step":
+    0-d int32 tensor}``; ``metrics`` = ``{"loss", "ce_loss", "moe_aux",
+    "grad_norm"}``, 0-d tensors on the parameters' device (nothing is read
+    back to the host).  The step updates the state's tensors in place and
+    returns the same dict.  ``grad_transform`` maps the gradients (a dict
+    by parameter name) before the update; ``grad_norm`` is their global
+    norm after it and before the optimizer's clip.  ``microbatches`` = M
+    > 1 splits the batch into M sequential microbatches against the same
+    parameters: their float32 gradients are summed and divided by M, the
+    loss and the aux are the means, and ``ce_loss`` is the mean loss, as
+    in the reference (``lm.py:93-108``).  The parameters require grad only
+    inside the step."""
+    if microbatches < 1:
+        raise ValueError(f"microbatches {microbatches} < 1")
+
+    def grads_of(params, batch):
+        loss, metrics = loss_fn(cfg, params, batch, compute_dtype,
+                                remat_policy)
+        named = list(params.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    materialize_grads=True)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                {n: g for (n, _), g in zip(named, grads)})
+
+    def accumulate(params, batch):
+        M = microbatches
+        parts = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])
+                 for k, v in batch.items()}
+        acc: Dict[str, torch.Tensor] = {}
+        loss_sum = aux_sum = 0.0
+        for m in range(M):
+            loss, metrics, g = grads_of(params,
+                                        {k: v[m] for k, v in parts.items()})
+            if not acc:
+                acc = {n: t.float() for n, t in g.items()}
+            else:
+                torch._foreach_add_(list(acc.values()),
+                                    [g[n] for n in acc])
+            loss_sum = loss_sum + loss
+            aux_sum = aux_sum + metrics["moe_aux"]
+            del g
+        torch._foreach_div_(list(acc.values()), M)
+        loss = loss_sum / M
+        return loss, {"ce_loss": loss, "moe_aux": aux_sum / M}, acc
+
+    def step(state, batch):
+        params = state["params"]
+        params.requires_grad_(True)
+        try:
+            with ieee_fp32_matmul():
+                loss, metrics, grads = (grads_of if microbatches == 1
+                                        else accumulate)(params, batch)
+        finally:
+            params.requires_grad_(False)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        grad_norm = global_norm(grads)
+        optimizer.update(params, grads, state["opt"])
+        state["step"] += 1
+        return state, dict(metrics, loss=loss, grad_norm=grad_norm)
+
+    return step
 
 
 def make_serve_step(cfg, compute_dtype=torch.bfloat16):
@@ -81,3 +149,10 @@ def make_prefill(cfg, compute_dtype=torch.bfloat16):
                                    compute_dtype=compute_dtype)[0]
 
     return prefill
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The square root of the sum of every tensor's float32 sum of
+    squares."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree.values()))

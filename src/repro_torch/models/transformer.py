@@ -18,18 +18,32 @@ Caches are lists with one dict a layer, in the reference's per-block
 layout (``{k, v}``, with ``k_scale`` and ``v_scale`` for int8; ``{h,
 conv}``; ``{wkv, tm_shift, cm_shift}``), and decode updates them in place.
 Float32 products run in IEEE float32 whatever the global TF32 setting
-(``devices.ieee_fp32_matmul``).  Remat (``remat_policy``) has no
-counterpart: it changes what the backward pass saves, never a forward
-value.  ``sharding.constraints`` has no counterpart either: without a mesh
-its calls are no-ops in the reference.
+(``devices.ieee_fp32_matmul``).  ``sharding.constraints`` has no
+counterpart: without a mesh its calls are no-ops in the reference.
+
+Parameters are made frozen (``requires_grad=False``), so serving and the
+forward and prefill paths build no autograd graph; the train step
+(``lm.make_train_step``) switches them on for its own forward and backward
+and off again.  :func:`forward` takes the reference's ``remat_policy``
+(``transformer.py:164-192``) when it builds a graph: ``"nothing"``
+checkpoints each block (non-reentrant ``torch.utils.checkpoint``: only the
+block's input is kept, the block runs again in the backward pass),
+``"dots"`` keeps the products' outputs (``mm``, ``addmm``, ``bmm``) and
+recomputes the rest, ``"none"`` keeps everything.  The reference
+checkpoints each group of layers and, in a multi-layer group (Jamba's),
+each block inside it again; the port's groups are its blocks.  Remat
+changes what the backward pass keeps, never a value.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..devices import ieee_fp32_matmul
 from . import attention as attn_mod
@@ -217,11 +231,38 @@ def _head(cfg, params: Transformer, compute_dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: the products whose outputs ``remat_policy="dots"`` keeps (the
+#: reference's ``dots_with_no_batch_dims_saveable``: matmuls; the port's
+#: batched products are ``bmm``)
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default)
+REMAT_POLICIES = ("nothing", "dots", "none")
+
+
+def _remat(fn, policy: str):
+    """``fn`` under ``policy``'s checkpoint (see the module docstring)."""
+    if policy == "nothing":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         list(SAVED_DOTS)))
+    return fn
+
+
 def forward(cfg, params: Transformer, *, tokens=None, embeds=None,
-            positions=None, compute_dtype=torch.bfloat16):
+            positions=None, compute_dtype=torch.bfloat16,
+            remat_policy: str = "nothing"):
     """Returns ``(logits[B, S, V] float32, moe_aux_loss)``: tokens (B, S)
     through the embedding, or ``embeds`` (B, S, D) as the modality stubs
-    give them."""
+    give them.  ``remat_policy`` applies where a graph is built (grad
+    mode on and trainable parameters)."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r} not in "
+                         f"{REMAT_POLICIES}")
+    if not (torch.is_grad_enabled() and params.embed.requires_grad):
+        remat_policy = "none"
     with ieee_fp32_matmul():
         x = _embed(params, tokens, embeds, compute_dtype)
         S = x.shape[1]
@@ -229,8 +270,14 @@ def forward(cfg, params: Transformer, *, tokens=None, embeds=None,
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for l, bp in enumerate(params.blocks):
-            x, aux, _ = apply_block(bp, x, *layer_kinds(cfg, l), cfg,
-                                    compute_dtype, positions=positions)
+            kind, ffn_kind = layer_kinds(cfg, l)
+
+            def block(x, bp=bp, kind=kind, ffn_kind=ffn_kind):
+                y, aux, _ = apply_block(bp, x, kind, ffn_kind, cfg,
+                                        compute_dtype, positions=positions)
+                return y, aux
+
+            x, aux = _remat(block, remat_policy)(x)
             if aux is not None:
                 aux_total = aux_total + aux
         x = apply_norm(params.final_norm, x, cfg)

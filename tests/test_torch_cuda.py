@@ -34,11 +34,15 @@ from repro_torch.kernels.route import (  # noqa: E402
     route_offsets_plain, route_pack, route_pack_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
     accumulate_, accumulate_plain_, window_agg, window_agg_plain_into_)
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
-    params_from_numpy, params_to_numpy)
+    opt_state_from_numpy, opt_state_to_numpy, params_from_numpy,
+    params_to_numpy)
 from repro_torch.nexmark import NexmarkGenerator  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.runtime.data import SyntheticLMData  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
 from repro_torch.streaming.window import window_state_init  # noqa: E402
@@ -845,3 +849,125 @@ def test_route_rejects_non_contiguous(cuda):
     pids, valid = _pids(64, 4, 0, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         route_counts(pids[::2], valid[::2], 4)
+
+
+# -- training (no kernel: autograd over the plain modules) ---------------------
+
+def _train_trees(cfg, state):
+    return (params_to_numpy(cfg, state["params"]),
+            opt_state_to_numpy(cfg, state["opt"]))
+
+
+def _assert_trees_close(got, want, rtol, atol_share, what):
+    """Every array within ``rtol`` and an atol of ``atol_share`` of the
+    tree's largest magnitude (None: ``rtol`` absolute)."""
+    leaves = []
+
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            assert sorted(g) == sorted(w), path
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, tuple):
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{path}/{i}")
+        else:
+            leaves.append((np.asarray(g), np.asarray(w), path))
+
+    walk(got, want, what)
+    atol = rtol if atol_share is None else atol_share * max(
+        float(np.abs(w).max()) for _, w, _ in leaves if w.size)
+    for g, w, path in leaves:
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=path)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x7b",
+                                  "jamba-v0.1-52b"])
+def test_train_step_on_cuda_matches_cpu(cuda, arch):
+    """``chip_smoke.py`` phase 14 (b): two float32 train steps of a
+    reduced model on the card and on the CPU, each from one state (the
+    card takes the CPU's state after each comparison: AdamW's first steps
+    amplify the rounding of a gradient near 0 to up to 2 lr, which the
+    next step's gradients would carry); the loss and
+    grad norm at rtol 1e-4, mu and nu at rtol 1e-4 with an atol of 1e-4 of
+    the tree's largest magnitude, as tests/test_torch_train.py holds the
+    CPU to the JAX package; the parameters at rtol = atol = 1e-4 but where
+    the CPU's mu lies within 1e-4 of its array's largest of 0 (and is not
+    0 on both sides): there the gradient's sign is rounding, and AdamW's
+    normalised step (about lr * sign(g)) may part them by up to 2 lr."""
+    cfg = get_config(arch).reduced()
+    cpu, step = train.make_trainer(cfg, steps=10, lr=3e-4,
+                                   compute_dtype=torch.float32, seed=9,
+                                   device="cpu")
+    card = {"params": params_from_numpy(cfg, params_to_numpy(
+                cfg, cpu["params"]), cuda),
+            "opt": opt_state_from_numpy(cfg, opt_state_to_numpy(
+                cfg, cpu["opt"]), cuda),
+            "step": cpu["step"].clone().to(cuda)}
+    data = SyntheticLMData(cfg.vocab_size, 2, 32, seed=9)
+    names = [n for n, _ in cpu["params"].named_parameters()]
+    for i in range(2):
+        batch = data.batch_at(i)
+        card, mc = step(card, train.batch_on(batch, cuda))
+        cpu, mh = step(cpu, train.batch_on(batch, "cpu"))
+        for k in ("loss", "grad_norm"):
+            assert float(mc[k]) == pytest.approx(float(mh[k]), rel=1e-4), k
+        (_, oc), (_, oh) = _train_trees(cfg, card), _train_trees(cfg, cpu)
+        for k in ("mu", "nu"):
+            _assert_trees_close(oc[k], oh[k], 1e-4, 1e-4,
+                                f"{arch} step {i} {k}")
+        for n in names:
+            m, c = cpu["opt"]["mu"][n], card["opt"]["mu"][n].cpu()
+            free = (m.abs() <= 1e-4 * m.abs().max()) & ((m != 0) | (c != 0))
+            got = card["params"].get_parameter(n).detach().cpu()
+            want = cpu["params"].get_parameter(n).detach()
+            tol = torch.where(free, 2 * 3e-4, 1e-4) + 1e-4 * want.abs()
+            assert bool(((got - want).abs() <= tol).all()), (arch, i, n)
+        assert int(card["step"]) == int(cpu["step"]) == i + 1
+        with torch.no_grad():                 # the next step from one state
+            for n in names:
+                card["params"].get_parameter(n).copy_(
+                    cpu["params"].get_parameter(n))
+            for k in ("mu", "nu"):
+                for n in names:
+                    card["opt"][k][n].copy_(cpu["opt"][k][n])
+
+
+def test_train_resume_on_cuda_is_exact(cuda, tmp_path):
+    """``launch.train.main`` on the card: 6 straight steps == 3 steps +
+    restore + 3 (phase 14 (c))."""
+    common = ["--arch", "olmo-1b", "--reduced", "--batch", "2", "--seq",
+              "32", "--device", "cuda"]
+    straight = train.main(common + ["--steps", "6", "--log-every", "6",
+                                    "--ckpt-dir", str(tmp_path / "a"),
+                                    "--ckpt-every", "100"])
+    train.main(common + ["--steps", "3", "--schedule-steps", "6",
+                         "--log-every", "3", "--ckpt-dir",
+                         str(tmp_path / "b"), "--ckpt-every", "3"])
+    resumed = train.main(common + ["--steps", "6", "--log-every", "6",
+                                   "--ckpt-dir", str(tmp_path / "b"),
+                                   "--ckpt-every", "100", "--resume"])
+    assert straight[-1] == pytest.approx(resumed[-1], rel=1e-4)
+
+
+def test_async_save_then_step_on_cuda_restores_the_save(cuda, tmp_path):
+    """An async save, at once a step (in place on the card), then the
+    restore onto the card: the state at the save, exactly."""
+    cfg = get_config("olmo-1b").reduced()
+    state, step = train.make_trainer(cfg, steps=10,
+                                     compute_dtype=torch.float32,
+                                     device=cuda)
+    data = SyntheticLMData(cfg.vocab_size, 2, 32)
+    state, _ = step(state, train.batch_on(data.batch_at(0), cuda))
+    at_save = _train_trees(cfg, state)
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(state, 1)
+    state, _ = step(state, train.batch_on(data.batch_at(1), cuda))
+    mgr.wait()
+    fresh, _ = train.make_trainer(cfg, steps=10, compute_dtype=torch.float32,
+                                  seed=1, device=cuda)
+    restored = mgr.restore(fresh)
+    assert restored["params"].embed.device.type == "cuda"
+    _assert_trees_close(_train_trees(cfg, restored), at_save, 0.0, None,
+                        "restored")
+    assert int(restored["step"]) == 1

@@ -36,7 +36,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import (  # noqa: E402
     decode_attention, kernel_config, split_plan)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lm, transformer  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     cache_from_numpy, cache_to_numpy, params_from_numpy, params_to_numpy)
@@ -44,7 +44,7 @@ from repro_torch.models.convert import (  # noqa: E402
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
-ROADMAP = "ROADMAP.md §1, queue item 5"
+ROADMAP = "ROADMAP.md §1, queue item 6"
 
 
 def _np_tree(tree):
@@ -362,8 +362,9 @@ def test_init_params_has_reference_tree_and_scales(arch):
 # -- what the port does not run -----------------------------------------------
 
 def _unsupported_cases():
-    qwen = get_config("qwen2-1.5b").reduced()
-    return {"make_train_step": lambda: lm.make_train_step(qwen, None)}
+    return {"train_mesh": lambda: train.main(
+        ["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mesh",
+         "16x16"])}
 
 
 @pytest.mark.parametrize("case", sorted(_unsupported_cases()))

@@ -51,7 +51,10 @@ def test_importing_every_module_loads_no_jax_or_reference():
                  "repro_torch.runtime.chaos", "repro_torch.snapshot.sinks",
                  "repro_torch.snapshot.active_active",
                  "repro_torch.models.moe", "repro_torch.models.mamba",
-                 "repro_torch.models.rwkv6"):
+                 "repro_torch.models.rwkv6", "repro_torch.runtime.optimizer",
+                 "repro_torch.runtime.checkpoint",
+                 "repro_torch.runtime.compression",
+                 "repro_torch.runtime.data", "repro_torch.launch.train"):
         assert name in modules, name
     script = textwrap.dedent(f"""
         import importlib, sys
