@@ -11,7 +11,9 @@ host with 4 cards: the ranks over NCCL, a card each); ``python3
 chip_smoke.py --engine`` runs phases 1, 2 and 10 alone; ``python3
 chip_smoke.py --faults`` runs phases 1, 2 and 12 alone; ``python3
 chip_smoke.py --lm`` runs phases 1, 2 and 13 alone; ``python3
-chip_smoke.py --train`` runs phases 1, 2 and 14 alone.
+chip_smoke.py --train`` runs phases 1, 2 and 14 alone; ``python3
+chip_smoke.py --mesh`` runs phases 1, 2 and 15 alone (on a host with 4
+cards: the ranks over NCCL, a card each).
 
 It drives six paths of the port: device-tier NEXMark Q5 on one card
 (``window_agg``'s library: one fused ``accumulate`` launch a step), LM
@@ -25,10 +27,11 @@ step, the replays included), every LM family of the registry
 (``decode_attention`` on every attention layer's decode, the rolling and
 the linear sliding-window caches and the int8 cache included), and
 training (no kernel: the gradients come from autograd over the plain
-modules, as the reference's come from ``jax.value_and_grad``).  The
+modules, as the reference's come from ``jax.value_and_grad``), and
+training on a mesh of 4 ranks (no kernel either).  The
 ``window_agg`` op, ``route_counts`` and ``route_offsets`` are held in
 phases 3 and 11 as the TPU kernels' counterparts and launch on no path.
-Phases, in order of number; phases 12 to 14 run between 10 and 11,
+Phases, in order of number; phases 12 to 15 run between 10 and 11,
 before 11's profiler slows every launch after it.  Any failure ends
 the run with a non-zero exit and no result line:
 
@@ -136,6 +139,24 @@ the run with a non-zero exit and no result line:
     moments within 1e-4; (c) ``launch.train.main --resume`` on the card (6
     straight steps against 3 + 3, rel 1e-4), and an async checkpoint
     followed at once by a step restores the state at the save exactly;
+15. mesh: 4 spawned ranks (NCCL with a card a rank on a host with 4
+    cards, else ``gloo_host``, the 4 ranks sharing this card with every
+    collective staged through pinned host memory), parameters, AdamW's
+    moments and batches placed as DTensors by ``sharding/rules.py``: (a)
+    olmo-1b at full width through ``launch/train.py``'s trainer on a 2x2
+    mesh, seq 2 048 (train_4k's 4 096 cut: four processes share one
+    card), batch 8 in 2 microbatches, 5 steps, every loss finite and the
+    last below the first; it prints per rank ms a step, tokens/s, peak
+    memory and one step's collective calls and bytes, beside one process
+    at the same shape; (b) olmo-1b (a train step on 2x2 and 1x4) and
+    mixtral-8x7b (forward and loss on 1x4, layer 0's routing) at full
+    width cut to 2 layers in float32, against the one-process port on
+    the card within 1e-4, the routing exactly; (c) mixtral-8x7b cut to 4
+    of 32 layers in bf16, expert-parallel on 1x4 (2 experts a rank), a
+    forward of 8 x 512: ms, peak memory and the expert psum's bytes a
+    layer; (d) ``launch/dryrun.py`` on the host for the three cells of
+    the reference's multipod test: argument and peak GB a device and
+    ``fits_80gb``, each within 80 GB;
 
 then the numbers line, the kernels line, the card line, and last the
 result line ``{"ok": true, "device": {...}}``.
@@ -191,7 +212,7 @@ from repro_torch.kernels.route import (  # noqa: E402
 from repro_torch.kernels.window_agg import (  # noqa: E402
     accumulate_, accumulate_plain_, window_agg, window_agg_plain_into_)
 from repro_torch.launch.mesh import (  # noqa: E402
-    make_data_mesh, spawn_ranks)
+    make_data_mesh, make_smoke_mesh, ranks_backend, spawn_ranks)
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -203,6 +224,7 @@ from repro_torch.models.convert import (  # noqa: E402
 from repro_torch.nexmark import NexmarkGenerator, queries  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.data import SyntheticLMData  # noqa: E402
+from repro_torch.sharding import constraints, rules  # noqa: E402
 from repro_torch.runtime.worker_proc import (  # noqa: E402
     MultiprocessBackend)
 from repro_torch.runtime.chaos import (  # noqa: E402
@@ -3151,6 +3173,397 @@ def train_path(dev) -> dict:
     return res
 
 
+# -- phase 15 ----------------------------------------------------------------
+# the mesh layer: 4 ranks spawned as phase 9 spawns them (NCCL with a card a
+# rank where the host has 4 cards, else gloo with the ranks sharing this
+# card); parameters, AdamW's moments and batches are DTensors placed by
+# sharding/rules.py
+MESH_RANKS = 4
+#: (a) olmo-1b at full width through launch/train.py's trainer on 2x2, in
+#: the reference driver's configuration, train_4k's sequence cut from
+#: 4 096 to 2 048 (four processes share one card's 80 GB)
+MESH_SEQ, MESH_BATCH, MESH_MICRO, MESH_STEPS = 2048, 8, 2, 5
+#: the step time is the p50 of steps 2 to 5; step 1 (DTensor's sharding
+#: propagation warms its caches) runs under the collective counter
+MESH_TIMED_FROM = 1
+#: (b) exactness on the card: 2 layers at full width, float32, against the
+#: one-process port on the same card (phase 14's card tolerance)
+MESH_TOL = 1e-4
+MESH_EXACT_LAYERS, MESH_EXACT_B, MESH_EXACT_S = 2, 4, 128
+#: (c) mixtral-8x7b expert-parallel at full width: 4 of 32 layers in bf16
+#: on 1x4 (E = 8: 2 experts a rank), a forward of 8 x 512 tokens
+MESH_MOE_LAYERS, MESH_MOE_B, MESH_MOE_S = 4, 8, 512
+#: (d) tests/test_dryrun_multipod.py's cells, dry-run on the host
+MESH_DRYRUN_CELLS = (("olmo-1b", "train_4k", True),
+                     ("qwen2-1.5b", "decode_32k", True),
+                     ("rwkv6-7b", "long_500k", False))
+MESH_SEED = 3
+
+
+def mesh_dryrun_start() -> list:
+    """(d): the three cells' dry runs, each a process of its own on the
+    host (no card: ``CUDA_VISIBLE_DEVICES`` empty), started at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mp in MESH_DRYRUN_CELLS:
+        log_file = tempfile.TemporaryFile(mode="w+", prefix="dryrun-")
+        procs.append(((arch, shape, mp), log_file, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape] + (["--multi-pod"] if mp else []),
+            env=env, cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def mesh_dryrun_finish(procs: list, timeout_s: float = 600) -> dict:
+    """(d)'s results: argument and peak GB a device and ``fits_80gb``
+    of each cell; a cell that failed or does not fit fails the phase."""
+    res = {}
+    try:
+        for (arch, shape, mp), log_file, proc in procs:
+            rc = proc.wait(timeout=timeout_s)
+            log_file.seek(0)
+            text = log_file.read()
+            if rc != 0:
+                raise AssertionError(f"dry run {arch}/{shape}: exit {rc}: "
+                                     f"{text[-2000:]}")
+            mesh = "2x16x16" if mp else "16x16"
+            r = json.loads((ROOT / "experiments" / "dryrun_torch" /
+                            f"{arch}__{shape}__{mesh}.json").read_text())
+            res[f"{arch}/{shape}/{mesh}"] = {
+                "argument_gb": r["memory"]["argument_bytes"] / 1e9,
+                "peak_gb": r["memory"]["peak_bytes"] / 1e9,
+                "fits_80gb": r["fits_80gb"], "flops": r["flops"],
+                "collective_bytes": r["collectives"]["total_bytes"],
+                "step_s": r["step_s"]}
+            if not r["fits_80gb"]:
+                raise AssertionError(f"dry run {arch}/{shape}/{mesh} does "
+                                     f"not fit 80 GB: {res}")
+    finally:
+        for _, log_file, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    for cell, r in res.items():
+        log(f"mesh (d) dry run {cell}: argument {r['argument_gb']:.3f} GB "
+            f"and peak {r['peak_gb']:.3f} GB a device, fits_80gb "
+            f"{r['fits_80gb']}, {r['flops']:.3e} FLOP a device, "
+            f"{r['collective_bytes'] / 1e9:.3f} GB to collectives, "
+            f"{r['step_s']} s")
+    return res
+
+
+def mesh_cfg(arch: str, layers: int):
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def mesh_exact_batch(cfg, dev, mesh=None):
+    return train_mod.batch_on(SyntheticLMData(
+        cfg.vocab_size, MESH_EXACT_B, MESH_EXACT_S,
+        seed=MESH_SEED).batch_at(0), dev, mesh)
+
+
+@contextlib.contextmanager
+def captured_routing(out: list):
+    """Within the block, the first ``moe._route`` call's experts and kept
+    choices are appended to ``out`` (layer 0's routing)."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod._route
+
+    def recording(*args):
+        r = route(*args)
+        if not out:
+            out.append((r[2].detach().cpu().numpy().copy(),
+                        r[4].detach().cpu().numpy().copy()))
+        return r
+
+    moe_mod._route = recording
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+
+
+def mesh_train_timed(dev, mesh=None) -> dict:
+    """(a)'s run: olmo-1b at full width, MESH_STEPS steps from
+    ``launch/train.py``'s trainer (on ``mesh`` where given), step 1 under
+    the collective counter; ms a step, tokens/s and peak memory."""
+    from repro_torch.launch.dryrun import CollectiveCounter
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_ARCH)
+    state, step_fn = train_mod.make_trainer(
+        cfg, steps=MESH_STEPS, compute_dtype=torch.bfloat16,
+        microbatches=MESH_MICRO, seed=0, device=dev, mesh=mesh)
+    data = SyntheticLMData(cfg.vocab_size, MESH_BATCH, MESH_SEQ, seed=0)
+    losses, norms, step_ms = [], [], []
+    comms = None
+    for step in range(MESH_STEPS):
+        batch = train_mod.batch_on(data.batch_at(step), dev, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == 0 and mesh is not None:
+            with CollectiveCounter() as counter:
+                state, m = step_fn(state, batch)
+            comms = counter.summary()
+        else:
+            state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(train_mod.value(m["loss"]))
+        norms.append(train_mod.value(m["grad_norm"]))
+    ms = float(np.percentile(step_ms[MESH_TIMED_FROM:], 50))
+    res = {"step_ms": step_ms, "step_ms_p50": ms,
+           "tokens_per_s": MESH_BATCH * MESH_SEQ / (ms / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+           "losses": losses, "grad_norms": norms, "collectives": comms}
+    del state, step_fn
+    free_card()
+    return res
+
+
+def mesh_references(dev, path: Path) -> dict:
+    """The one-process port on this card: (a) at (a)'s shape, (b)'s olmo
+    step and mixtral loss (with layer 0's routing); (b)'s numbers go to
+    ``path`` for the ranks."""
+    res = {"olmo_full": mesh_train_timed(dev)}
+    cfg = mesh_cfg(TRAIN_ARCH, MESH_EXACT_LAYERS)
+    state, step_fn = train_mod.make_trainer(
+        cfg, steps=10, compute_dtype=torch.float32, seed=MESH_SEED,
+        device=dev)
+    state, m = step_fn(state, mesh_exact_batch(cfg, dev))
+    arrays = {"olmo/loss": np.float64(float(m["loss"])),
+              "olmo/grad_norm": np.float64(float(m["grad_norm"]))}
+    for name, p in state["params"].named_parameters():
+        arrays[f"olmo/params/{name}"] = p.detach().cpu().numpy()
+    del state, step_fn
+    free_card()
+    cfg = mesh_cfg("mixtral-8x7b", MESH_EXACT_LAYERS)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), torch.float32, device=dev)
+    routing = []
+    with torch.no_grad(), captured_routing(routing):
+        loss, _ = lm.loss_fn(cfg, params, mesh_exact_batch(cfg, dev),
+                             torch.float32)
+    arrays["mixtral/loss"] = np.float64(float(loss))
+    arrays["mixtral/experts"], arrays["mixtral/kept"] = routing[0]
+    del params
+    free_card()
+    np.savez(path, **arrays)
+    return res
+
+
+def mesh_violation(got: float, want) -> float:
+    """``|got - want| / (MESH_TOL (1 + |want|))``, largest over arrays."""
+    want = np.asarray(want, np.float64)
+    return float((np.abs(np.asarray(got, np.float64) - want)
+                  / (MESH_TOL * (1 + np.abs(want)))).max())
+
+
+def mesh_exact(rank: int, dev, ref: dict) -> dict:
+    """(b) on this rank: olmo's step on 2x2 and 1x4, mixtral's loss and
+    routing on 1x4, against the one-process port's (``ref``); rank 0
+    compares, every rank gathers."""
+    res = {}
+    cfg = mesh_cfg(TRAIN_ARCH, MESH_EXACT_LAYERS)
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_smoke_mesh(shape, ("data", "model"), "cuda")
+        constraints.set_mesh(mesh)
+        try:
+            state, step_fn = train_mod.make_trainer(
+                cfg, steps=10, compute_dtype=torch.float32, seed=MESH_SEED,
+                device=dev, mesh=mesh)
+            state, m = step_fn(state, mesh_exact_batch(cfg, dev, mesh))
+            worst = {"loss": mesh_violation(train_mod.value(m["loss"]),
+                                            ref["olmo/loss"]),
+                     "grad_norm": mesh_violation(
+                         train_mod.value(m["grad_norm"]),
+                         ref["olmo/grad_norm"]), "params": 0.0}
+            for name, p in state["params"].named_parameters():
+                whole = p.full_tensor().detach().cpu().numpy()
+                worst["params"] = max(worst["params"], mesh_violation(
+                    whole, ref[f"olmo/params/{name}"]))
+        finally:
+            constraints.set_mesh(None)
+        res[f"olmo_{shape[0]}x{shape[1]}"] = worst
+        del state, step_fn
+        free_card()
+    mesh = make_smoke_mesh((1, 4), ("data", "model"), "cuda")
+    cfg = mesh_cfg("mixtral-8x7b", MESH_EXACT_LAYERS)
+    constraints.set_mesh(mesh)
+    try:
+        # the whole experts are built one rank at a time: 11.3 GB each
+        for r in range(dist.get_world_size()):
+            if r == rank:
+                params = lm.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(MESH_SEED),
+                    torch.float32, device=dev)
+                rules.distribute_module(params, mesh,
+                                        rules.param_sharding(mesh, params))
+                free_card()
+            dist.barrier()
+        routing = []
+        with torch.no_grad(), captured_routing(routing), \
+                constraints.replicated_constants():
+            loss, _ = lm.loss_fn(cfg, params,
+                                 mesh_exact_batch(cfg, dev, mesh),
+                                 torch.float32)
+        res["mixtral_1x4"] = {
+            "loss": mesh_violation(train_mod.value(loss),
+                                   ref["mixtral/loss"]),
+            "routing_exact": bool(
+                np.array_equal(routing[0][0], ref["mixtral/experts"])
+                and np.array_equal(routing[0][1], ref["mixtral/kept"]))}
+    finally:
+        constraints.set_mesh(None)
+    del params
+    free_card()
+    return res
+
+
+def mesh_moe_forward(rank: int, dev) -> dict:
+    """(c) on this rank: mixtral-8x7b, MESH_MOE_LAYERS layers in bf16 on
+    1x4 (expert-parallel: 2 experts a rank), a forward of MESH_MOE_B x
+    MESH_MOE_S tokens: ms (p50 of 3 after a warm-up), peak memory, and
+    the bytes ``all_reduce`` moves a layer."""
+    from repro_torch.launch.dryrun import CollectiveCounter
+    mesh = make_smoke_mesh((1, 4), ("data", "model"), "cuda")
+    cfg = mesh_cfg("mixtral-8x7b", MESH_MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            params = lm.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(MESH_SEED),
+                torch.bfloat16, device=dev)
+            rules.distribute_module(
+                params, mesh, rules.param_sharding(mesh, params, fsdp=False))
+            free_card()
+        dist.barrier()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = train_mod.batch_on(SyntheticLMData(
+        cfg.vocab_size, MESH_MOE_B, MESH_MOE_S, seed=MESH_SEED).batch_at(0),
+        dev, mesh)["tokens"]
+    constraints.set_mesh(mesh)
+    times = []
+    try:
+        with torch.no_grad():
+            with CollectiveCounter() as counter:
+                logits, _ = transformer.forward(cfg, params, tokens=tokens,
+                                                compute_dtype=torch.bfloat16)
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = transformer.forward(cfg, params, tokens=tokens,
+                                                compute_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        finite = bool(torch.isfinite(logits.to_local()).all())
+    finally:
+        constraints.set_mesh(None)
+    comms = counter.summary()
+    res = {"ms": float(np.median(times)), "times_ms": times,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+           "params_bytes": held, "finite": finite,
+           "logits_local_shape": list(logits.to_local().shape),
+           "all_reduce_bytes_per_layer":
+               comms["bytes"].get("all_reduce", 0) / MESH_MOE_LAYERS,
+           "collectives": comms}
+    del params, logits
+    free_card()
+    return res
+
+
+def mesh_rank(rank: int, world: int, dev, ref_path: str) -> dict:
+    """Phase 15 in one rank: (a) on 2x2, (b), (c)."""
+    zero_counts()
+    ref = dict(np.load(ref_path))
+    mesh = make_smoke_mesh((2, 2), ("data", "model"), "cuda")
+    constraints.set_mesh(mesh)
+    try:
+        train = mesh_train_timed(dev, mesh)
+    finally:
+        constraints.set_mesh(None)
+    exact = mesh_exact(rank, dev, ref)
+    moe_fwd = mesh_moe_forward(rank, dev)
+    return {"train": train, "exact": exact, "moe_forward": moe_fwd,
+            "launches": launch_counts()}
+
+
+def mesh_path(dev, trains=None) -> dict:
+    """Phase 15: (a) olmo-1b at full width on ``train --mesh 2x2``, beside
+    one process at the same shape (and phase 14's run where it ran); (b)
+    the sharded runs against the one-process port; (c) mixtral's
+    expert-parallel forward; (d) the dry run's three cells."""
+    t0 = time.perf_counter()
+    dry = mesh_dryrun_start()
+    cards = torch.cuda.device_count()
+    backend = ranks_backend(torch.device("cuda"), MESH_RANKS)
+    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
+        ref_path = Path(tmp) / "ref.npz"
+        one = mesh_references(dev, ref_path)
+        log(f"mesh: {MESH_RANKS} ranks over {backend} "
+            f"({cards} card(s)); one process first")
+        per_rank = spawn_ranks(mesh_rank, MESH_RANKS, backend=backend,
+                               device="cuda", args=(str(ref_path),),
+                               timeout_s=900)
+    res = {"ranks": MESH_RANKS, "backend": backend,
+           "one_process": one["olmo_full"],
+           "per_rank": per_rank, "dryrun": mesh_dryrun_finish(dry)}
+    base = one["olmo_full"]
+    log(f"mesh (a) one process, olmo-1b full width seq {MESH_SEQ} batch "
+        f"{MESH_BATCH} ({MESH_MICRO} microbatches): {base['step_ms_p50']:.1f}"
+        f" ms a step, {base['tokens_per_s']:.0f} tokens/s, peak "
+        f"{base['peak_memory_bytes'] / 1e9:.2f} GB, loss "
+        f"{base['losses'][0]:.4f} -> {base['losses'][-1]:.4f}")
+    if trains is not None:
+        full = trains["full_width"]
+        log(f"mesh (a) phase 14 beside it (seq {TRAIN_SEQ}, one process): "
+            f"{full['step_ms_p50']:.1f} ms a step, "
+            f"{full['tokens_per_s']:.0f} tokens/s, peak "
+            f"{full['peak_memory_bytes'] / 1e9:.2f} GB")
+    for rank, r in enumerate(per_rank):
+        t = r["train"]
+        log(f"mesh (a) rank {rank} on 2x2: {t['step_ms_p50']:.1f} ms a step "
+            f"(p50 of steps {MESH_TIMED_FROM + 1}-{MESH_STEPS}), "
+            f"{t['tokens_per_s']:.0f} tokens/s, peak "
+            f"{t['peak_memory_bytes'] / 1e9:.2f} GB, loss "
+            f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; one step's "
+            f"collectives {json.dumps(t['collectives'])}")
+        m = r["moe_forward"]
+        log(f"mesh (c) rank {rank}: mixtral {MESH_MOE_LAYERS} layers bf16 "
+            f"1x4 forward of {MESH_MOE_B} x {MESH_MOE_S}: {m['ms']:.1f} ms, "
+            f"peak {m['peak_memory_bytes'] / 1e9:.2f} GB over "
+            f"{m['params_bytes'] / 1e9:.2f} GB of its shards, all_reduce "
+            f"{m['all_reduce_bytes_per_layer'] / 1e6:.2f} MB a layer")
+    for r in per_rank:
+        losses = r["train"]["losses"] + r["train"]["grad_norms"]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"mesh (a): non-finite loss: {losses}")
+        if not r["train"]["losses"][-1] < r["train"]["losses"][0]:
+            raise AssertionError(f"mesh (a): the loss did not fall: "
+                                 f"{r['train']['losses']}")
+        if not r["moe_forward"]["finite"]:
+            raise AssertionError("mesh (c): non-finite logits")
+        if any(r["launches"].values()):
+            raise AssertionError(f"mesh: kernels launched {r['launches']}")
+    exact = per_rank[0]["exact"]
+    log(f"mesh (b) sharded against one process on the card, largest error "
+        f"over the {MESH_TOL} tolerance: {json.dumps(exact)}")
+    ratios = [v for case in exact.values() for k, v in case.items()
+              if k != "routing_exact"]
+    if not all(v < 1 for v in ratios) or \
+            not exact["mixtral_1x4"]["routing_exact"]:
+        raise AssertionError(f"mesh (b): beyond tolerance: {exact}")
+    res["launches"] = {k: sum(r["launches"][k] for r in per_rank)
+                       for k in per_rank[0]["launches"]}
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"mesh: phase 15 in {res['wall_s']:.1f} s")
+    return res
+
+
 # -- phase 11 ----------------------------------------------------------------
 def route_timing_cases(dev):
     """Each route kernel at the 4-rank path's shape (rank 0's slice of a Q5
@@ -3677,6 +4090,15 @@ def train_only(name: str, smi: str) -> int:
     return 0
 
 
+def mesh_only(name: str, smi: str) -> int:
+    """``--mesh``: phase 15 alone, after the card and the build."""
+    print(json.dumps({"mesh": mesh_path(torch.device("cuda"))}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mp-faults"] and len(sys.argv) == 3:
         return mp_faults_child(Path(sys.argv[2]))
@@ -3697,6 +4119,8 @@ def main() -> int:
         return lm_only(name, smi)
     if sys.argv[1:] == ["--train"]:
         return train_only(name, smi)
+    if sys.argv[1:] == ["--mesh"]:
+        return mesh_only(name, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -3727,6 +4151,7 @@ def main() -> int:
     faults = faults_path(dev)
     lms = lm_path(dev)
     trains = train_path(dev)
+    meshes = mesh_path(dev, trains)
     attn["launches_by_path"] = {
         "serve_qwen2": serve["decode_attention_launches"],
         "lm_mixtral": lms["mixtral"]["decode_attention_launches"],
@@ -3737,6 +4162,8 @@ def main() -> int:
             "decode_attention_launches"]}
     attn["launches_by_path"]["train_olmo"] = trains["full_width"][
         "launches"]["decode_attention"]
+    attn["launches_by_path"]["mesh_ranks"] = meshes["launches"][
+        "decode_attention"]
     attn["launches"] = sum(attn["launches_by_path"].values())
     acc["launches_by_path"] = {
         "q5_run_stream": path["launches"]["accumulate"],
@@ -3746,15 +4173,18 @@ def main() -> int:
         "faults_reference_stream":
             faults["reference_stream"]["accumulate_launches"],
         "faults_paper_shape": faults["paper_shape"]["accumulate_launches"],
-        "train_olmo": trains["full_width"]["launches"]["accumulate"]}
+        "train_olmo": trains["full_width"]["launches"]["accumulate"],
+        "mesh_ranks": meshes["launches"]["accumulate"]}
     acc["launches"] = sum(acc["launches_by_path"].values())
     window["launches_by_path"] = {
         "q5_run_stream": path["launches"]["window_agg"],
-        "train_olmo": trains["full_width"]["launches"]["window_agg"]}
+        "train_olmo": trains["full_width"]["launches"]["window_agg"],
+        "mesh_ranks": meshes["launches"]["window_agg"]}
     for entry in routes:
         entry["launches_by_path"] = {
             "q5_ranks_route": entry["launches"],
-            "train_olmo": trains["full_width"]["launches"][entry["name"]]}
+            "train_olmo": trains["full_width"]["launches"][entry["name"]],
+            "mesh_ranks": meshes["launches"][entry["name"]]}
     # phase 11: event timings first, then the profiler
     ab = q5_wall_ab(dev)
     attn.update(time_decode_attention(dev))
@@ -3784,7 +4214,7 @@ def main() -> int:
                       "serve_profile": serve_prof,
                       "train_profile": train_prof, "q5_ranks": ranks,
                       "engine": engine, "faults": faults, "lm": lms,
-                      "train": trains,
+                      "train": trains, "mesh": meshes,
                       "total_s": total}))
     print(json.dumps({"kernels": [window, acc, attn, *routes]}))
     print(smi)

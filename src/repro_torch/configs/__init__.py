@@ -2,15 +2,15 @@
 
 A copy of ``repro/configs/__init__.py`` (data only; the port keeps its own
 copy rather than import the JAX package).  ``get_config(name)`` works as
-in the reference.  ``SHAPES`` gives the serving shapes that
-``chip_smoke.py`` times the decode kernel at; the dry-run cell list
-(``applicable_cells``) waits for the mesh layer (ROADMAP.md §1).
+in the reference.  ``SHAPES`` and ``applicable_cells`` give the dry
+run's cells (``launch/dryrun.py``); ``long_500k`` runs only for the
+sub-quadratic architectures (sliding window, SSM, hybrid).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 from ..models.config import ModelConfig
 
@@ -49,6 +49,26 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
+
+
+def is_subquadratic(cfg: ModelConfig) -> bool:
+    """Can this architecture decode at 500k context?  SWA, SSM and hybrid
+    (few attention layers) qualify; pure full attention does not."""
+    return cfg.family in ("ssm", "hybrid") or cfg.attention == "swa"
+
+
+def applicable_cells(arch: Optional[str] = None) -> List[Tuple[str, str]]:
+    """All (arch, shape) dry-run cells, honouring the long_500k skip
+    rule."""
+    cells = []
+    for a, cfg in REGISTRY.items():
+        if arch and a != arch:
+            continue
+        for s in SHAPES:
+            if s == "long_500k" and not is_subquadratic(cfg):
+                continue
+            cells.append((a, s))
+    return cells
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,5 +1,5 @@
-"""Launchers: the train loop (``train.main``), the serve loop
-(``serve.BatchedLMServer``) and the data mesh with its rank launcher
-(``mesh.make_data_mesh``, ``mesh.spawn_ranks``).  The production meshes
-and the multi-pod dry-runs have no counterpart yet (ROADMAP.md §1, queue
-item 6)."""
+"""Launchers: the train loop (``train.main``, over a mesh of ranks with
+``--mesh``), the serve loop (``serve.BatchedLMServer``), the meshes and
+the rank launcher (``mesh``), the per-cell builders (``specs``) and the
+dry runs of the LM cells (``dryrun``) and of the streaming job
+(``dryrun_streaming``) on a fake world of 256 or 512 ranks."""

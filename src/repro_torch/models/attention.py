@@ -12,6 +12,10 @@ their own type (``preferred_element_type=jnp.float32``, so a bf16 score is
 never rounded to bf16), probabilities are cast to v's type before the PV
 product, and a PV product of 16-bit inputs rounds to their type.
 
+On a mesh, the q/k/v projections are placed as the reference's
+``constrain_heads`` places them before the split into heads, and the
+full-sequence core runs per shard (:func:`_sdpa_on_mesh`).
+
 Where the port differs from the reference in mechanism, not result:
 
 * The cache is updated **in place**: the step's k and v are written into
@@ -47,8 +51,14 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from ..kernels.decode_attn import decode_attention
+from ..kernels.decode_attn import decode_attention, decode_attention_plain
+from ..sharding.constraints import (BATCH, constrain, constrain_flat_heads,
+                                    constrain_heads, gather_unsplit_heads,
+                                    get_mesh)
+from ..sharding.rules import distribute, mesh_shape
 from .layers import apply_rope, normal_init
 
 NEG_INF = -1e30
@@ -93,8 +103,9 @@ def _project_qkv(params, x: torch.Tensor, cfg, compute_dtype):
         q = q + params["bq"].to(compute_dtype)
         k = k + params["bk"].to(compute_dtype)
         v = v + params["bv"].to(compute_dtype)
-    return (q.reshape(B, S, H, dh), k.reshape(B, S, Hk, dh),
-            v.reshape(B, S, Hk, dh))
+    return (constrain_flat_heads(q, H).reshape(B, S, H, dh),
+            constrain_flat_heads(k, Hk).reshape(B, S, Hk, dh),
+            constrain_flat_heads(v, Hk).reshape(B, S, Hk, dh))
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, cfg) -> torch.Tensor:
@@ -160,6 +171,64 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, cfg, chunk: int = KV_CHUNK
     return out.transpose(1, 2).to(dt)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands back a contiguous gradient: the
+    core's products give q, k and v permuted gradients, and DTensor views
+    of the split heads need their shards contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _core(sdpa, cfg):
+    def run(q, k, v, q_pos, k_pos):
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return sdpa(q, k, v, q_pos, k_pos, cfg).contiguous()
+    return run
+
+
+def _sdpa_on_mesh(sdpa, q, k, v, positions, cfg) -> DTensor:
+    """The attention core on a mesh, per shard (``local_map``): each rank
+    runs ``sdpa`` on its batch rows and its heads, or, where the heads do
+    not divide the ``model`` axis, on its chunk of the queries against the
+    whole sequence.  These are the reference's ``constrain_heads`` and
+    ``constrain_scores`` anchors (``attention.py:101-105``, ``:130-136``)
+    as placements: the core needs no collective, and the products never
+    flatten a dimension sharded over two mesh dimensions.  On the query
+    fallback, every ``model`` rank's gradient of k and v is a partial
+    sum."""
+    mesh = get_mesh()
+    G = q.shape[2] // k.shape[2]
+    k, v = _expand_kv(k, G), _expand_kv(v, G)
+    q = constrain_heads(q)
+    names = list(mesh_shape(mesh))
+    m = names.index("model")
+    heads = q.placements[m] == Shard(2)
+    if heads:
+        k, v = constrain_heads(k), constrain_heads(v)
+    else:                       # the queries' chunk: the keys whole
+        k, v = (constrain(t, BATCH, None, None, None) for t in (k, v))
+    q_pos = distribute(positions, mesh,
+                       ("model",) if q.placements[m] == Shard(1) else (None,))
+    k_pos = distribute(positions, mesh, (None,))
+    kv_grad = tuple(Partial() if i == m and not heads else p
+                    for i, p in enumerate(k.placements))
+    core = local_map(
+        _core(sdpa, cfg),
+        out_placements=list(q.placements),
+        in_placements=(q.placements, k.placements, v.placements,
+                       q_pos.placements, k_pos.placements),
+        in_grad_placements=(q.placements, kv_grad, kv_grad,
+                            q_pos.placements, k_pos.placements),
+        device_mesh=mesh)
+    return core(q, k, v, q_pos, k_pos)
+
+
 def attention(params, x: torch.Tensor, cfg, *, positions=None,
               compute_dtype, cache: Optional[dict] = None,
               pos: Optional[int] = None, chunked: Optional[bool] = None,
@@ -175,13 +244,18 @@ def attention(params, x: torch.Tensor, cfg, *, positions=None,
     current length; x is (B, 1, D).  Returns (y, cache)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, compute_dtype)
+    q = constrain_heads(q)
     if cache is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         use_chunked = S > CHUNK_THRESHOLD if chunked is None else chunked
         sdpa = _sdpa_chunked if use_chunked else _sdpa_full
-        out = sdpa(q, k, v, positions, positions, cfg)
-        y = out.reshape(B, S, -1) @ params["wo"].to(compute_dtype)
+        if isinstance(q, DTensor) and get_mesh() is not None:
+            out = _sdpa_on_mesh(sdpa, q, k, v, positions, cfg)
+        else:
+            out = sdpa(q, k, v, positions, positions, cfg)
+        y = gather_unsplit_heads(out.reshape(B, S, -1), cfg.n_heads) \
+            @ params["wo"].to(compute_dtype)
         if not return_kv:
             return y, None
         kc, vc = k, v
@@ -220,8 +294,14 @@ def attention(params, x: torch.Tensor, cfg, *, positions=None,
     lo = 0
     if cfg.attention == "swa" and not rolling:
         lo = min(max(pos - cfg.swa_window + 1, 0), S_max - 1)
-    out = decode_attention(q[:, 0], kc.permute(0, 2, 1, 3),
-                           vc.permute(0, 2, 1, 3), pos, lo)
+    # a dry run's meta tensors (launch/dryrun.py) take the plain version;
+    # on a mesh (only the dry run decodes on one) its heads' grouping needs
+    # every head of q on each device
+    decode = decode_attention_plain if q.device.type == "meta" \
+        else decode_attention
+    q = constrain(q, BATCH, None, None, None)
+    out = decode(q[:, 0], kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3),
+                 pos, lo)
     y = out.to(compute_dtype).reshape(B, 1, -1) @ params["wo"].to(
         compute_dtype)
     return y, cache

@@ -14,6 +14,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 
@@ -93,12 +96,62 @@ def mlp(params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return h @ params["w_down"].to(compute_dtype)
 
 
-def chunked_time_scan(step: Callable, init, xs, chunk: int = 256
-                      ) -> Tuple[object, object]:
-    """``carry, y = step(carry, x_t)`` over the time-major leading axis of
-    ``xs`` (a tensor or a tuple of tensors); returns ``(carry, ys)`` with
-    ``ys`` stacked time-major (a tensor, or a tuple where ``step`` returns
-    one).
+def placed_zeros(shape, like: torch.Tensor, dims: Dict[int, int], dtype
+                 ) -> torch.Tensor:
+    """Zeros of ``shape`` on ``like``'s device; where ``like`` is a
+    DTensor, a DTensor whose dim ``dims[d]`` is sharded as ``like``'s dim
+    ``d`` is, replicated elsewhere (a scan's first carry, placed as its
+    inputs)."""
+    z = torch.zeros(shape, dtype=dtype, device=like.device)
+    if not isinstance(like, DTensor):
+        return z
+    placements = [Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                  else Replicate() for p in like.placements]
+    return distribute_tensor(z, like.device_mesh, placements,
+                             src_data_rank=None)
+
+
+def _scan_per_shard(step: Callable, init, xs, chunk: int, consts):
+    """:func:`chunked_time_scan` over DTensors, per shard (``local_map``):
+    the recurrence is independent for every batch row and every channel
+    or head, which is how its inputs are sharded, so each rank scans its
+    own.  The time axis must be whole.  An input replicated on a mesh
+    dimension over which the carry is split (a const such as Mamba's ``A``
+    over the batch, its ``B`` and ``C`` over the channels) gets a partial
+    gradient there."""
+    seq = xs if isinstance(xs, tuple) else (xs,)
+    if any(p.is_shard(0) for t in seq for p in t.placements):
+        raise ValueError("a scan's time axis (dim 0) must not be sharded")
+    mesh = init.device_mesh
+    split = [not p.is_replicate() for p in init.placements]
+    ins = (init, *seq, *consts)
+    n = len(seq)
+
+    def grad_placements(t):
+        return tuple(Partial() if split[i] and p.is_replicate() else p
+                     for i, p in enumerate(t.placements))
+
+    def local(init, *rest):
+        x = tuple(rest[:n]) if isinstance(xs, tuple) else rest[0]
+        return chunked_time_scan(step, init, x, chunk, tuple(rest[n:]))
+
+    return local_map(
+        local, out_placements=(list(init.placements),
+                               list(seq[0].placements)),
+        in_placements=tuple(t.placements for t in ins),
+        in_grad_placements=tuple(grad_placements(t) for t in ins),
+        device_mesh=mesh)(*ins)
+
+
+def chunked_time_scan(step: Callable, init, xs, chunk: int = 256,
+                      consts: tuple = ()) -> Tuple[object, object]:
+    """``carry, y = step(carry, x_t, *consts)`` over the time-major
+    leading axis of ``xs`` (a tensor or a tuple of tensors); returns
+    ``(carry, ys)`` with ``ys`` stacked time-major (a tensor, or a tuple
+    where ``step`` returns one).  On a mesh (DTensor inputs, ``init``
+    placed as the carry, e.g. by :func:`placed_zeros`) the scan runs per
+    shard (:func:`_scan_per_shard`) and returns DTensors placed as
+    ``init`` and ``xs``' first tensor.
 
     As in the reference (``layers.py:73-97``), time runs in chunks of
     ``chunk`` steps (halved until it divides the length), and where a
@@ -107,6 +160,8 @@ def chunked_time_scan(step: Callable, init, xs, chunk: int = 256
     steps', O(T / chunk + chunk) carries instead of O(T).  The values do
     not depend on ``chunk``."""
     seq = xs if isinstance(xs, tuple) else (xs,)
+    if isinstance(seq[0], DTensor):
+        return _scan_per_shard(step, init, xs, chunk, consts)
     T = seq[0].shape[0]
     c = min(chunk, T)
     while T % c:
@@ -116,7 +171,8 @@ def chunked_time_scan(step: Callable, init, xs, chunk: int = 256
         ys = []
         for t in range(x_chunk[0].shape[0]):
             x_t = tuple(x[t] for x in x_chunk)
-            carry, y = step(carry, x_t if isinstance(xs, tuple) else x_t[0])
+            carry, y = step(carry, x_t if isinstance(xs, tuple) else x_t[0],
+                            *consts)
             ys.append(y)
         if isinstance(ys[0], tuple):
             return carry, tuple(torch.stack(y) for y in zip(*ys))

@@ -14,7 +14,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import chunked_time_scan, normal_init
+from ..sharding.constraints import BATCH, constrain
+from .layers import chunked_time_scan, normal_init, placed_zeros
 
 
 def _dims(cfg) -> Tuple[int, int]:
@@ -52,7 +53,10 @@ def _ssm_inputs(params, x: torch.Tensor, cfg, compute_dtype,
     _, R = _dims(cfg)
     N, Kc = cfg.d_state, cfg.d_conv
     xz = x.to(compute_dtype) @ params["in_proj"].to(compute_dtype)
-    xs, z = xz.chunk(2, dim=-1)                           # (B, S, di)
+    # on a mesh, the channels shard on model and the batch on (pod, data)
+    # at each product's output (no-ops without one)
+    xs, z = (constrain(t, BATCH, None, "model")
+             for t in xz.chunk(2, dim=-1))                # (B, S, di)
     # causal depthwise conv of width Kc
     if conv_state is None:
         xp = F.pad(xs, (0, 0, Kc - 1, 0))
@@ -65,10 +69,12 @@ def _ssm_inputs(params, x: torch.Tensor, cfg, compute_dtype,
     conv = conv + params["conv_b"].to(compute_dtype)
     new_conv = xp[:, -(Kc - 1):, :] if Kc > 1 else None
     xc = F.silu(conv)
-    proj = xc @ params["x_proj"].to(compute_dtype)
+    proj = constrain(xc @ params["x_proj"].to(compute_dtype),
+                     BATCH, None, None)
     dt, Bs, Cs = proj.split([R, N, N], dim=-1)
-    dt = F.softplus(dt @ params["dt_proj"].to(compute_dtype)
-                    + params["dt_bias"].to(compute_dtype))
+    dt = constrain(dt @ params["dt_proj"].to(compute_dtype),
+                   BATCH, None, "model")
+    dt = F.softplus(dt + params["dt_bias"].to(compute_dtype))
     return xc, z, dt, Bs, Cs, new_conv
 
 
@@ -97,13 +103,15 @@ def mamba(params, x: torch.Tensor, cfg, compute_dtype,
         xc, z, dt, Bs, Cs, conv_tail = _ssm_inputs(params, x, cfg,
                                                    compute_dtype)
 
-        def step(h, inp):
+        def step(h, inp, A):
             return _ssm_step(h, *inp, A)
 
-        h0 = torch.zeros((B, cfg.expand * cfg.d_model, cfg.d_state),
-                         dtype=torch.float32, device=x.device)
+        # (B, di, N), placed as xc's (B, S, di) batch and channels
+        h0 = placed_zeros((B, cfg.expand * cfg.d_model, cfg.d_state), xc,
+                          {0: 0, 2: 1}, torch.float32)
         h_last, ys = chunked_time_scan(
-            step, h0, tuple(t.transpose(0, 1) for t in (xc, dt, Bs, Cs)))
+            step, h0, tuple(t.transpose(0, 1) for t in (xc, dt, Bs, Cs)),
+            consts=(A,))
         y = ys.transpose(0, 1)                             # (B, S, di)
         y = y + xc.float() * D_skip
         y = (y * F.silu(z.float())).to(compute_dtype)

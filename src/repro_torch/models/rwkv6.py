@@ -15,7 +15,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import chunked_time_scan, normal_init
+from ..sharding.constraints import BATCH, constrain
+from .layers import chunked_time_scan, normal_init, placed_zeros
 
 LORA_DIM = 32
 DECAY_LORA = 64
@@ -107,8 +108,10 @@ def time_mix(params, x: torch.Tensor, cfg, compute_dtype,
         shift_state = torch.zeros((B, D), dtype=cd, device=x.device)
     xx = _shift(x, shift_state.to(cd)) - x
     xxx = x + xx * params["maa_x"].to(cd)
-    lora = torch.tanh(xxx @ params["tm_w1"].to(cd)).reshape(B, S, 5,
-                                                            LORA_DIM)
+    # on a mesh the lora's 5 x LORA_DIM columns are replicated before the
+    # split into 5 (tm_w1 shards them on model, which 5 need not divide)
+    lora = constrain(torch.tanh(xxx @ params["tm_w1"].to(cd)),
+                     BATCH, None, None).reshape(B, S, 5, LORA_DIM)
     mods = torch.einsum("bsfl,fld->bsfd", lora, params["tm_w2"].to(cd))
     maa = params["maa"].to(cd)                                  # (5, D)
     xw, xk, xv, xr, xg = [x + xx * (maa[i] + mods[:, :, i, :])
@@ -124,18 +127,26 @@ def time_mix(params, x: torch.Tensor, cfg, compute_dtype,
     u = params["u"].float()                                     # (H, dh)
     wh = w.reshape(B, S, H, dh)
 
-    def step(s, inp):
+    # on a mesh the recurrence runs per shard: its inputs with the batch
+    # on (pod, data) and the heads on model, as the bonus u (no-ops
+    # without a mesh)
+    r, k, v, wh = (constrain(t, BATCH, None, "model", None)
+                   for t in (r, k, v, wh))
+    u = constrain(u, "model", None)
+
+    def step(s, inp, u):
         return _wkv_step(s, *inp, u)
 
     if state is None:
-        state = torch.zeros((B, H, dh, dh), dtype=torch.float32,
-                            device=x.device)
+        # (B, H, dh, dh), placed as r's (B, S, H, dh) batch and heads
+        state = placed_zeros((B, H, dh, dh), r, {0: 0, 2: 1}, torch.float32)
     if S == 1:
-        state, y = step(state, (r[:, 0], k[:, 0], v[:, 0], wh[:, 0]))
+        state, y = step(state, (r[:, 0], k[:, 0], v[:, 0], wh[:, 0]), u)
         y = y[:, None]
     else:
         state, ys = chunked_time_scan(
-            step, state, tuple(t.transpose(0, 1) for t in (r, k, v, wh)))
+            step, state, tuple(t.transpose(0, 1) for t in (r, k, v, wh)),
+            consts=(u,))
         y = ys.transpose(0, 1)                                  # (B,S,H,dh)
     y = _group_norm(y.reshape(B, S, D), params["ln_x_scale"],
                     params["ln_x_bias"], H)

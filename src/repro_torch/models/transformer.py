@@ -18,8 +18,21 @@ Caches are lists with one dict a layer, in the reference's per-block
 layout (``{k, v}``, with ``k_scale`` and ``v_scale`` for int8; ``{h,
 conv}``; ``{wkv, tm_shift, cm_shift}``), and decode updates them in place.
 Float32 products run in IEEE float32 whatever the global TF32 setting
-(``devices.ieee_fp32_matmul``).  ``sharding.constraints`` has no
-counterpart: without a mesh its calls are no-ops in the reference.
+(``devices.ieee_fp32_matmul``).
+
+On a mesh (``sharding.constraints.set_mesh`` and DTensor parameters and
+inputs, ``launch/train.py --mesh``) the same code runs on DTensors, whose
+placements propagate op by op where the reference's GSPMD propagates
+shardings.  The reference's anchors pin them: the residual stream is
+sequence-parallel between blocks (``constrain_batch_seq``) and the logits
+vocab-parallel (``constrain_logits``); a block's FSDP weights are
+gathered over ``data`` for their use (``gather_fsdp``, their gradients
+reduce-scattered back); a mixer's or FFN's input is gathered over the
+sequence and its output reduced to the batch layout (``gather_seq``,
+Megatron's pair around tensor-parallel products); the vocab-parallel head
+runs per shard (:func:`_logits`).  Plain tensors the model makes on the
+fly enter as replicated (``replicated_constants``).  Without a mesh all
+of these are identities.
 
 Parameters are made frozen (``requires_grad=False``), so serving and the
 forward and prefill paths build no autograd graph; the train step
@@ -38,14 +51,23 @@ changes what the backward pass keeps, never a value.
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..devices import ieee_fp32_matmul
+from ..sharding.constraints import (BATCH, constrain, constrain_batch_seq,
+                                    constrain_logits, gather_fsdp,
+                                    gather_seq, get_mesh,
+                                    replicated_constants)
+from ..sharding.rules import mesh_shape
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
@@ -164,6 +186,20 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
+def _in_use(bp: Block, ffn_kind: str):
+    """The block's parameter dicts with every FSDP-sharded weight gathered
+    for this use (``constraints.gather_fsdp``); without a mesh the block
+    itself.  An MoE ``ffn`` stays as placed: its ``local_map`` gathers
+    the experts after routing, as the reference does."""
+    if get_mesh() is None:
+        return bp
+    return SimpleNamespace(**{
+        name: (dict(getattr(bp, name).items())
+               if name == "ffn" and ffn_kind == "moe" else
+               {k: gather_fsdp(v) for k, v in getattr(bp, name).items()})
+        for name in bp.subs})
+
+
 def apply_block(bp: Block, x: torch.Tensor, kind: str, ffn_kind: str, cfg,
                 compute_dtype, *, positions=None, cache=None,
                 pos: Optional[int] = None, collect_cache: bool = False,
@@ -175,25 +211,26 @@ def apply_block(bp: Block, x: torch.Tensor, kind: str, ffn_kind: str, cfg,
     prefill with ``collect_cache``: a new one in ``init_cache``'s layout;
     else None)."""
     aux = None
-    h = apply_norm(bp.norm1, x, cfg)
+    bp = _in_use(bp, ffn_kind)
+    h = gather_seq(apply_norm(bp.norm1, x, cfg))
     if kind == "attn":
         y, new_cache = attn_mod.attention(
             bp.mixer, h, cfg, positions=positions,
             compute_dtype=compute_dtype, cache=cache, pos=pos,
             return_kv=collect_cache, kv_pad_to=kv_pad_to)
-        x = x + y
+        x = x + gather_seq(y)
     elif kind == "mamba":
         y, new_cache = mamba_mod.mamba(bp.mixer, h, cfg, compute_dtype,
                                        cache=cache,
                                        return_state=collect_cache)
-        x = x + y
+        x = x + gather_seq(y)
     elif kind == "rwkv6":
         st = cache or {}
         y, wkv, tm_shift = rwkv_mod.time_mix(
             bp.mixer, h, cfg, compute_dtype, state=st.get("wkv"),
             shift_state=st.get("tm_shift"))
-        x = x + y
-        h2 = apply_norm(bp.norm2, x, cfg)
+        x = x + gather_seq(y)
+        h2 = gather_seq(apply_norm(bp.norm2, x, cfg))
         y2, cm_shift = rwkv_mod.channel_mix(
             bp.mixer, h2, cfg, compute_dtype,
             shift_state=st.get("cm_shift"))
@@ -204,26 +241,55 @@ def apply_block(bp: Block, x: torch.Tensor, kind: str, ffn_kind: str, cfg,
             new_cache = cache
         elif not collect_cache:
             new_cache = None
-        return x + y2, aux, new_cache
+        return x + gather_seq(y2), aux, new_cache
     else:
         raise ValueError(kind)
-    h2 = apply_norm(bp.norm2, x, cfg)
+    h2 = gather_seq(apply_norm(bp.norm2, x, cfg))
     if ffn_kind == "moe":
         y2, aux = moe_mod.moe_ffn(bp.ffn, h2, cfg, compute_dtype)
     else:
         y2 = mlp(bp.ffn, h2, compute_dtype)
-    return x + y2, aux, new_cache
+    return x + gather_seq(y2), aux, new_cache
 
 
 def _embed(params: Transformer, tokens, embeds, compute_dtype):
+    """The lookup as ``F.embedding`` (``embed[tokens]``): DTensor shards
+    it over a vocab-sharded table where torch 2.11 has no strategy for
+    ``aten.index``."""
     if embeds is None:
-        return params.embed.to(compute_dtype)[tokens]
+        return F.embedding(tokens, params.embed.to(compute_dtype))
     return embeds.to(compute_dtype)
 
 
 def _head(cfg, params: Transformer, compute_dtype) -> torch.Tensor:
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return head.to(compute_dtype)
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``(x @ head)`` in float32.  On a mesh the vocab-parallel product
+    runs per shard (``local_map``): x whole on ``model``, the head's
+    vocab shard, the logits' vocab shard, so that their gradient comes
+    back in that layout too (DTensor's propagation through the loss could
+    hand it back sharded on the tokens); x's gradient is a partial sum
+    over ``model``, the head's over the batch axes."""
+    if not isinstance(x, DTensor):
+        return (x @ head).float()
+    mesh = x.device_mesh
+    x = constrain(x, BATCH, None, None)
+    head = constrain(head, None, "model")
+    names = list(mesh_shape(mesh))
+    batch = [names.index(a) for a in BATCH if a in names]
+    out = tuple(Shard(2) if i == names.index("model") else p
+                for i, p in enumerate(x.placements))
+    x_grad = tuple(Partial() if i == names.index("model") else p
+                   for i, p in enumerate(x.placements))
+    head_grad = tuple(Partial() if i in batch else p
+                      for i, p in enumerate(head.placements))
+    return local_map(lambda a, b: (a @ b).float(), out_placements=list(out),
+                     in_placements=(x.placements, head.placements),
+                     in_grad_placements=(x_grad, head_grad),
+                     device_mesh=mesh)(x, head)
 
 
 # ---------------------------------------------------------------------------
@@ -263,8 +329,8 @@ def forward(cfg, params: Transformer, *, tokens=None, embeds=None,
                          f"{REMAT_POLICIES}")
     if not (torch.is_grad_enabled() and params.embed.requires_grad):
         remat_policy = "none"
-    with ieee_fp32_matmul():
-        x = _embed(params, tokens, embeds, compute_dtype)
+    with ieee_fp32_matmul(), replicated_constants():
+        x = constrain_batch_seq(_embed(params, tokens, embeds, compute_dtype))
         S = x.shape[1]
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -275,13 +341,14 @@ def forward(cfg, params: Transformer, *, tokens=None, embeds=None,
             def block(x, bp=bp, kind=kind, ffn_kind=ffn_kind):
                 y, aux, _ = apply_block(bp, x, kind, ffn_kind, cfg,
                                         compute_dtype, positions=positions)
-                return y, aux
+                return constrain_batch_seq(y), aux
 
             x, aux = _remat(block, remat_policy)(x)
             if aux is not None:
                 aux_total = aux_total + aux
-        x = apply_norm(params.final_norm, x, cfg)
-        logits = (x @ _head(cfg, params, compute_dtype)).float()
+        x = gather_seq(apply_norm(params.final_norm, x, cfg))
+        logits = constrain_logits(_logits(x, _head(cfg, params,
+                                                   compute_dtype)))
     return logits, aux_total
 
 
@@ -296,8 +363,8 @@ def prefill(cfg, params: Transformer, *, tokens=None, embeds=None,
     cache)`` with the cache laid out as :func:`init_cache` and decode expect
     (attention fills the KV cache, the recurrent layers hand over their
     final state)."""
-    with ieee_fp32_matmul():
-        x = _embed(params, tokens, embeds, compute_dtype)
+    with ieee_fp32_matmul(), replicated_constants():
+        x = constrain_batch_seq(_embed(params, tokens, embeds, compute_dtype))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         caches = []
@@ -305,8 +372,9 @@ def prefill(cfg, params: Transformer, *, tokens=None, embeds=None,
             x, _, c = apply_block(bp, x, *layer_kinds(cfg, l), cfg,
                                   compute_dtype, positions=positions,
                                   collect_cache=True, kv_pad_to=kv_pad_to)
+            x = constrain_batch_seq(x)
             caches.append(c)
-        x = apply_norm(params.final_norm, x[:, -1:, :], cfg)
+        x = apply_norm(params.final_norm, gather_seq(x)[:, -1:, :], cfg)
         logits = (x[:, 0, :] @ _head(cfg, params, compute_dtype)).float()
     return logits, caches
 
@@ -338,11 +406,13 @@ def decode_step(cfg, params: Transformer, cache, token: torch.Tensor,
                 pos: int, compute_dtype=torch.bfloat16):
     """token: (B,) int32; pos: Python int (current length).  Returns
     ``(logits[B, V] float32, cache)``, the cache updated in place."""
-    with ieee_fp32_matmul():
-        x = params.embed.to(compute_dtype).index_select(0, token)[:, None]
+    with ieee_fp32_matmul(), replicated_constants():
+        x = constrain_batch_seq(
+            params.embed.to(compute_dtype).index_select(0, token)[:, None])
         for l, (bp, bc) in enumerate(zip(params.blocks, cache)):
             x, _, _ = apply_block(bp, x, *layer_kinds(cfg, l), cfg,
                                   compute_dtype, cache=bc, pos=pos)
+            x = constrain_batch_seq(x)
         x = apply_norm(params.final_norm, x, cfg)
         logits = (x[:, 0, :] @ _head(cfg, params, compute_dtype)).float()
     return logits, cache

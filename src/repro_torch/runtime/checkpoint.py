@@ -21,6 +21,11 @@ the tensor itself: ``save`` copies every leaf into host memory of its own
 before it returns, or the next step would write into what the thread is
 serializing.  ``restore`` copies into ``state_like``'s tensors in place, so
 they keep their devices and types, and returns ``state_like``.
+
+On a mesh the state's tensors are DTensors: ``save`` gathers each whole
+(every rank calls it) and rank 0 alone writes; ``restore`` reads the whole
+arrays on every rank and copies each rank's shard into the placements of
+``state_like`` (``checkpoint.py:106-119``).
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..state import IMap, IMapService
 
@@ -57,8 +64,11 @@ def _leaves(state, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
     """A numpy array that shares no memory with ``t`` (bfloat16, which
-    numpy lacks, as float32: the restore casts back exactly)."""
+    numpy lacks, as float32: the restore casts back exactly); a DTensor
+    whole (every rank of its mesh takes part)."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.float().cpu().numpy()
     return t.to("cpu", copy=True).numpy()
@@ -74,8 +84,20 @@ def _restore_into(state_like, get):
         a = get(name)
         if a is None:
             raise KeyError(f"missing {name} in the checkpoint")
-        leaf.copy_(torch.from_numpy(np.asarray(a)))
+        whole = torch.from_numpy(np.asarray(a))
+        if isinstance(leaf, DTensor):       # this rank's shard of it
+            shard = distribute_tensor(
+                whole.to(leaf.device, leaf.dtype), leaf.device_mesh,
+                leaf.placements, src_data_rank=None)
+            leaf.to_local().copy_(shard.to_local())
+        else:
+            leaf.copy_(whole)
     return state_like
+
+
+def _writes() -> bool:
+    """Whether this process writes: in a multi-rank world, rank 0 alone."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -92,6 +114,8 @@ class CheckpointManager:
     # -- save ----------------------------------------------------------------
     def save(self, state, step: int) -> None:
         flat = _flatten(state)       # device->host copy, our own, here
+        if not _writes():
+            return
         if self.async_save:
             self.wait()              # at most one in-flight save
             self._thread = threading.Thread(

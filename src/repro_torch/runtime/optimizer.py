@@ -14,6 +14,10 @@ formulas are the reference's, in float32:
 * ``p <- p - lr (mu / bc1 / (sqrt(nu / bc2) + eps) + wd p)``, computed in
   float32 and cast back to the parameter's type.
 
+The parameters may be DTensors (a mesh): the update runs on every
+rank's shards, the clip's norm is global, and the moments keep the
+parameters' placements.
+
 Where the reference returns new trees, :meth:`AdamW.update` updates the
 parameters, ``mu``, ``nu`` and ``count`` **in place** and returns them: a
 reader that must keep a step's state (an asynchronous checkpoint) copies
@@ -28,6 +32,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 
 def named_tensors(params) -> Dict[str, torch.Tensor]:
@@ -52,14 +57,22 @@ class AdamW:
 
     def init(self, params) -> Dict[str, object]:
         """``{"mu", "nu"}`` as float32 zeros by parameter name, and
-        ``count`` a 0-d int32 zero, on the parameters' device."""
+        ``count`` a 0-d int32 zero, on the parameters' device.  DTensor
+        parameters (a mesh) give moments in their placements (ZeRO-3) and a
+        replicated ``count``."""
         named = named_tensors(params)
-        device = next(iter(named.values())).device
-        zeros = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for n, p in named.items()}
+        first = next(iter(named.values()))
+        zeros = {n: torch.zeros_like(p, dtype=torch.float32)
+                 for n, p in named.items()}
+        count = torch.zeros((), dtype=torch.int32, device=first.device)
+        if isinstance(first, DTensor):
+            mesh = first.device_mesh
+            count = distribute_tensor(count, mesh,
+                                      [Replicate()] * mesh.ndim,
+                                      src_data_rank=None)
         return {"mu": zeros,
                 "nu": {n: torch.zeros_like(z) for n, z in zeros.items()},
-                "count": torch.zeros((), dtype=torch.int32, device=device)}
+                "count": count}
 
     def schedule(self, step: torch.Tensor) -> torch.Tensor:
         """Linear warm-up, then cosine decay to a tenth of ``lr``."""

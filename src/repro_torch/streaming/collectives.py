@@ -12,8 +12,9 @@ and calls torch.distributed over the mesh's ``"data"`` group:
 
 A :class:`Transport` holds the group and decides how each collective's
 buffers travel.  On an NCCL group, CUDA tensors go as they are; on a gloo
-group, CPU tensors go as they are, and so do CUDA tensors for the
-collectives gloo runs on them itself (``GLOO_CUDA_NATIVE``).  gloo's
+group (or the dry run's fake one), CPU tensors go as they are, and so do
+CUDA tensors for the collectives gloo runs on them itself
+(``GLOO_CUDA_NATIVE``).  gloo's
 point-to-point moves read a CUDA pointer as host memory and abort the
 process (an H100 with torch 2.11 and its gloo), so those buffers are
 staged through pinned host memory, explicitly, and their bytes counted
@@ -64,7 +65,7 @@ class Transport:
         dev = t.device.type
         if self.backend == "nccl" and dev == "cuda":
             return False
-        if self.backend == "gloo" and dev == "cpu":
+        if self.backend in ("gloo", "fake") and dev == "cpu":
             return False
         if self.backend == "gloo" and dev == "cuda":
             return op not in GLOO_CUDA_NATIVE

@@ -971,3 +971,20 @@ def test_async_save_then_step_on_cuda_restores_the_save(cuda, tmp_path):
     _assert_trees_close(_train_trees(cfg, restored), at_save, 0.0, None,
                         "restored")
     assert int(restored["step"]) == 1
+
+
+# -- the mesh layer on the card ------------------------------------------------
+
+@pytest.mark.parametrize("arch,mesh", [("olmo-1b", "2x2"),
+                                       ("mixtral-8x7b", "1x4")])
+def test_mesh_train_on_cuda_matches_one_process(cuda, arch, mesh):
+    """``launch.train --mesh`` over 4 spawned ranks on the card(s) (gloo
+    with the ranks sharing a card where there are fewer than 4, NCCL with
+    a card a rank): the losses of one process on the card, reduced
+    configs in float32 (olmo's math is the same on 2x2; on 1x4 every rank
+    holds mixtral's whole batch, so its routing is the dense path's)."""
+    args = ["--arch", arch, "--reduced", "--device", "cuda", "--steps", "3",
+            "--batch", "4", "--seq", "16", "--log-every", "1"]
+    one = train.main(args)
+    sharded = train.main(args + ["--mesh", mesh])
+    np.testing.assert_allclose(sharded, one, rtol=1e-4)

@@ -44,7 +44,6 @@ from repro_torch.models.convert import (  # noqa: E402
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
-ROADMAP = "ROADMAP.md §1, queue item 6"
 
 
 def _np_tree(tree):
@@ -359,18 +358,16 @@ def test_init_params_has_reference_tree_and_scales(arch):
             assert abs(g.std() / w.std() - 1) < 0.05, name
 
 
-# -- what the port does not run -----------------------------------------------
+# -- the production meshes need their world ----------------------------------
 
-def _unsupported_cases():
-    return {"train_mesh": lambda: train.main(
-        ["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--mesh",
-         "16x16"])}
-
-
-@pytest.mark.parametrize("case", sorted(_unsupported_cases()))
-def test_unported_paths_raise(case):
-    with pytest.raises(NotImplementedError, match=ROADMAP):
-        _unsupported_cases()[case]()
+@pytest.mark.parametrize("mesh,ranks", [("16x16", 256), ("2x16x16", 512)])
+def test_train_production_mesh_needs_its_ranks(mesh, ranks):
+    """``--mesh 16x16`` (or ``2x16x16``) joins a world launched from
+    outside; in a smaller one (here: this process alone) it raises, naming
+    the ranks it needs, as the reference names devices."""
+    with pytest.raises(RuntimeError, match=f"needs {ranks} ranks"):
+        train.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu",
+                    "--mesh", mesh])
 
 
 def test_server_needs_a_card_unless_told_cpu():

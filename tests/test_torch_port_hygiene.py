@@ -54,7 +54,12 @@ def test_importing_every_module_loads_no_jax_or_reference():
                  "repro_torch.models.rwkv6", "repro_torch.runtime.optimizer",
                  "repro_torch.runtime.checkpoint",
                  "repro_torch.runtime.compression",
-                 "repro_torch.runtime.data", "repro_torch.launch.train"):
+                 "repro_torch.runtime.data", "repro_torch.launch.train",
+                 "repro_torch.sharding.rules",
+                 "repro_torch.sharding.constraints",
+                 "repro_torch.sharding.collectives",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.dryrun_streaming"):
         assert name in modules, name
     script = textwrap.dedent(f"""
         import importlib, sys
