@@ -108,8 +108,15 @@ the run with a non-zero exit and no result line:
     ``backend="mp"``, host placement, 4 worker processes, in a subprocess
     that cannot see the card: tests/test_chaos.py's stream and (b)'s
     stream cut to one frame, each clean and through a seeded SIGKILL of a
-    worker, equal to the in-process run, no ring left; and
-    ``q5(placement="device")`` on ``mp`` refused;
+    worker, equal to the in-process run, no ring left; (d)'s scenario
+    with host placement; and ``q5(placement="device")`` on ``mp``
+    refused.  (d) F9 (ROADMAP.md §3): phase 10 (a)'s stream with device
+    placement on two nodes, exactly-once, where source instance 0 runs to
+    the end while the others hold halfway; a snapshot begun after
+    instance 0 finished commits, the node dies right after that commit
+    and the held instances go on: the restored ``DeviceWindowProcessor``
+    and sources must give the clean run's result and the numpy oracle's,
+    one ``accumulate`` a device step, replays included;
 13. LM families, bf16, random weights from a seed, each through a
     ``BatchedLMServer`` of 8 slots fed from ``transformer.prefill``: (a)
     mixtral-8x7b at full width cut to 8 of its 32 layers (its 93 GB of
@@ -2455,6 +2462,12 @@ def mp_faults_child(out_path: Path) -> int:
         print(f"{name}: mp and mp through a SIGKILL equal in process "
               f"({len(clean['set'])} results); {json.dumps(got)}",
               flush=True)
+    fin = finished_source_check(None, "host", "mp")
+    res["finished_source"] = fin
+    print(f"finished_source: (d) on mp, host placement: restored after "
+          f"source instance 0 finished, equal to the clean run and the "
+          f"oracle ({fin['results']} results); {json.dumps(fin)}",
+          flush=True)
     left = [n for n in os.listdir("/dev/shm")
             if n.startswith(RING_NAME_PREFIX)]
     if left:
@@ -2526,12 +2539,166 @@ def mp_faults(dev) -> dict:
     return res
 
 
+#: (d): where the held source instances stop until released (a seq)
+F9_HOLD_SEQ = EQUIV_EVENTS // 2
+F9_DEADLINE_S = 120.0
+
+
+class HeldSource(PacedGeneratorSource):
+    """(d)'s source: instance 0 runs to the end of the stream and then
+    creates ``finished`` in the directory ``marks``; every other instance
+    stops at ``F9_HOLD_SEQ`` until ``released`` exists there.  Files, so
+    that worker processes of ``backend="mp"`` see them too."""
+
+    def __init__(self, marks: str, **kw):
+        super().__init__(**kw)
+        self.marks = marks
+        self._released = False
+
+    def complete(self) -> bool:
+        if not self._released:
+            self._released = os.path.exists(
+                os.path.join(self.marks, "released"))
+        if self._released or self.ctx.global_index == 0:
+            done = super().complete()
+            if done:
+                Path(self.marks, "finished").touch()
+            return done
+        full, self.max_events = self.max_events, F9_HOLD_SEQ
+        try:
+            super().complete()
+        finally:
+            self.max_events = full
+        return False
+
+
+def small_q5_oracle(gen, total: int, window_ms: int = 100,
+                    slide_ms: int = 20) -> set:
+    """Every ``(window_end, auction, count)`` of a Q5 window over the
+    generator's first ``total`` events, from their sequence numbers."""
+    blk = gen.gen_block(np.arange(total))
+    bid = blk.cols["kind"] == 2
+    counts: dict = {}
+    for ts, key in zip(blk.ts[bid].tolist(), blk.key[bid].tolist()):
+        first = (ts // slide_ms + 1) * slide_ms
+        for w in range(first, first + window_ms, slide_ms):
+            counts[(w, key)] = counts.get((w, key), 0) + 1
+    return {(w, k, c) for (w, k), c in counts.items()}
+
+
+def finished_source_run(dev, placement: str, backend: str, marks: Path,
+                        kill: bool, tracker=None) -> dict:
+    """(d)'s Q5 over ``HeldSource`` on 2 nodes x 2 threads, exactly-once;
+    with ``kill``, the last node dies right after the first commit of a
+    snapshot begun once instance 0 finished, then the held instances go
+    on.  Without it, ``marks`` must already hold ``released``."""
+    gen = NexmarkGenerator(rate=EQUIV_RATE, n_keys=40)
+    clock = VirtualClock(auto_step=0.001) if backend == "inproc" else None
+    cluster = JetCluster(n_nodes=2, cooperative_threads=2, backend=backend,
+                         clock=clock)
+    out: list = []
+    device = dict(EQUIV_DEVICE, device=dev) if placement == "device" \
+        else None
+    p = queries.q5(
+        lambda: HeldSource(str(marks), gen_fn=gen, rate=EQUIV_RATE,
+                           max_events=EQUIV_EVENTS),
+        lambda: CollectorSink(out), window_ms=100, slide_ms=20,
+        placement=placement, device=device)
+    gate, killed = None, False
+    t0 = time.perf_counter()
+    try:
+        job = cluster.submit(p.to_dag(), JobConfig(
+            processing_guarantee=GUARANTEE_EXACTLY_ONCE,
+            snapshot_interval_s=FAULT_SNAPSHOT_VIRTUAL_S))
+        deadline = time.monotonic() + F9_DEADLINE_S
+        while job.status not in (JOB_COMPLETED, JOB_FAILED):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"(d) job stuck (gate {gate}): "
+                                     f"{job.recovery_diagnostics()}")
+            cluster.step()
+            if tracker is not None:
+                tracker.see(job)
+            if not kill or killed:
+                continue
+            if gate is None and (marks / "finished").exists():
+                gate = job.execution.ssctx.requested_id + 1
+            sid = cluster.snapshot_store.latest_committed(job.id)
+            if gate is not None and sid is not None and sid >= gate:
+                cluster.kill_node(cluster.node_ids[-1])
+                killed = True
+                (marks / "released").touch()
+        if job.status != JOB_COMPLETED:
+            raise AssertionError(f"(d) job {job.status}: "
+                                 f"{job.recovery_diagnostics()}")
+        if kill and (not killed or job.restarts < 1):
+            raise AssertionError(f"(d) the node was not killed after a "
+                                 f"commit past instance 0's end (gate "
+                                 f"{gate})")
+        drops = sum(getattr(t.processor, "late_dropped", 0)
+                    for t in job.execution.tasklets)
+    finally:
+        cluster.shutdown()
+    results = {(ev.value.window_end, ev.key, ev.value.value) for ev in out}
+    if len({(w, k) for w, k, _v in results}) != len(results):
+        raise AssertionError(f"(d) {placement} on {backend}: a window "
+                             f"carries two values")
+    return {"set": results, "drops": drops, "gate": gate,
+            "restarts": job.restarts, "snapshots": job.snapshots_taken,
+            "wall_s": time.perf_counter() - t0}
+
+
+def finished_source_check(dev, placement: str, backend: str) -> dict:
+    """(d): the clean run, then the run through the gated kill; both must
+    equal the numpy oracle, and with device placement make one
+    ``accumulate`` launch a device step."""
+    oracle = small_q5_oracle(NexmarkGenerator(rate=EQUIV_RATE, n_keys=40),
+                             EQUIV_EVENTS)
+    res: dict = {"results": len(oracle), "accumulate_launches": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kill in (("clean", False), ("kill", True)):
+            marks = Path(tmp, label)
+            marks.mkdir()
+            if not kill:
+                (marks / "released").touch()
+            tracker = DeviceSteps() if placement == "device" else None
+            zero_counts()
+            run = finished_source_run(dev, placement, backend, marks, kill,
+                                      tracker)
+            if tracker is not None:
+                launches = launch_counts()
+                run["device_steps"] = tracker.check(launches, f"(d) {label}")
+                res["accumulate_launches"] += launches["accumulate"]
+            if run["set"] != oracle or run["drops"]:
+                raise AssertionError(
+                    f"(d) {placement} on {backend}, {label}: "
+                    f"{len(run['set'])} results, {run['drops']} drops; the "
+                    f"oracle {len(oracle)} results, "
+                    f"{len(run['set'] - oracle)} not in it, "
+                    f"{len(oracle - run['set'])} missing")
+            run.pop("set")
+            res[label] = run
+    return res
+
+
+def faults_finished_source(dev) -> dict:
+    """(d) on the card: device placement, in process."""
+    t0 = time.perf_counter()
+    res = finished_source_check(dev, "device", "inproc")
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"faults (d): restored after source instance 0 finished (gate "
+        f"snapshot {res['kill']['gate']}), equal to the clean run and the "
+        f"oracle ({res['results']} results), one accumulate a device step; "
+        f"{json.dumps(res)}")
+    return res
+
+
 def faults_path(dev) -> dict:
-    """Phase 12: (a), (b), then (c)."""
+    """Phase 12: (a), (b), (c), then (d)."""
     t0 = time.perf_counter()
     res = {"reference_stream": faults_reference_stream(dev),
            "paper_shape": faults_paper_shape(dev),
-           "mp": mp_faults(dev)}
+           "mp": mp_faults(dev),
+           "finished_source": faults_finished_source(dev)}
     res["wall_s"] = time.perf_counter() - t0
     log(f"faults: phase 12 in {res['wall_s']:.1f} s")
     return res
@@ -4173,6 +4340,8 @@ def main() -> int:
         "faults_reference_stream":
             faults["reference_stream"]["accumulate_launches"],
         "faults_paper_shape": faults["paper_shape"]["accumulate_launches"],
+        "faults_finished_source":
+            faults["finished_source"]["accumulate_launches"],
         "train_olmo": trains["full_width"]["launches"]["accumulate"],
         "mesh_ranks": meshes["launches"]["accumulate"]}
     acc["launches"] = sum(acc["launches_by_path"].values())

@@ -31,6 +31,7 @@ from .events import (DONE, Barrier, DoneItem, Event, EventBlock, Watermark,
                      MIN_TIME)
 from .processor import Inbox, Outbox, Processor
 from .watermark import WatermarkCoalescer
+from ..state.snapshot_store import own_snapshot_value
 
 #: max data items moved from one input queue per drain slice (the paper's
 #: batch-at-a-time tasklet granularity; also bounds slice latency)
@@ -335,12 +336,39 @@ class SnapshotContext:
     """Shared per-job snapshot coordination state (one per execution).
 
     A snapshot completes when every tasklet has either acked its barrier or
-    become exempt (a tasklet whose inputs are exhausted will never see a
-    barrier; its state is final and empty of in-flight work)."""
+    become exempt.  A tasklet turns exempt once its processor's
+    ``complete()`` returned True: it will never see another barrier, and
+    its state is final.  At that moment it leaves its final snapshot
+    entries here (:meth:`keep_final`), and every snapshot that completes
+    afterwards carries them: F9 (ROADMAP.md §3) was a snapshot that
+    completed without a finished source's cursor, so a restore from it
+    replayed events the restored windows already held.  The reference
+    exempts a tasklet without its state; this context departs from it on
+    purpose.
+
+    Why the carried entries are a consistent cut.  Say tasklet T turned
+    exempt with final entries E, and snapshot n completes after that
+    without T's ack.
+    * T emitted everything E accounts for into its outbox before turning
+      exempt (a source's cursor covers exactly the events it emitted; a
+      non-source's ``complete()`` has emitted its whole tail), and its
+      DONE follows all of it on every out-queue.
+    * A tasklet downstream of T acks n only once barrier n arrived on
+      every *live* input queue (``_recheck_alignment``).  T never sends
+      barrier n, so T's queue must turn done first, and it turns done
+      only after every item ahead of T's DONE was drained and, before
+      the snapshot starts, processed.  So every downstream ack of n
+      already counts everything E covers, and nothing beyond it.
+    * A non-source is *not* exempt while it is COMPLETING: there
+      ``complete()`` may still be emitting its tail (a window vertex
+      flushing its last windows), and state taken before that tail would
+      let a restore emit the tail twice (F10, ROADMAP.md §3).  It turns
+      exempt where ``complete()`` returned True, as a source does.
+    """
 
     __slots__ = ("guarantee", "requested_id", "writer", "tasklets", "_acked",
                  "completed_id", "on_complete", "terminal_requested",
-                 "aborted_count")
+                 "aborted_count", "_kept", "_early_acks")
 
     def __init__(self, guarantee: str, writer=None):
         self.guarantee = guarantee
@@ -355,6 +383,12 @@ class SnapshotContext:
         #: death mid-barrier); the last *committed* snapshot stays
         #: authoritative for recovery
         self.aborted_count = 0
+        #: id(tasklet) -> (tasklet, [(key, value, pid)]): the final
+        #: entries of every exempt tasklet (``keep_final``)
+        self._kept: dict = {}
+        #: snapshot id -> ids of tasklets that acked it before ``begin``
+        #: (F11, ``ack``)
+        self._early_acks: dict = {}
 
     def check_timeout(self) -> bool:
         """Abort the in-flight snapshot if its barrier acks are overdue;
@@ -378,17 +412,30 @@ class SnapshotContext:
 
     def begin(self, snapshot_id: int) -> None:
         self.requested_id = snapshot_id
-        self._acked = set()
+        early = self._early_acks
+        self._acked = early.pop(snapshot_id, set())
+        for sid in [sid for sid in early if sid < snapshot_id]:
+            del early[sid]
         self._check()
 
     def ack(self, snapshot_id: int, tasklet) -> None:
+        if snapshot_id > self.requested_id:
+            # F11: in a worker process, a tasklet whose local sources have
+            # finished aligns on barriers from other workers only, and can
+            # ack one before this worker's command to begin it arrived.
+            # Dropped, that ack would leave the local snapshot incomplete
+            # for good, and every later one queued behind it
+            self._early_acks.setdefault(snapshot_id, set()).add(id(tasklet))
+            return
         if snapshot_id != self.requested_id:
             return
         self._acked.add(id(tasklet))
         self._check()
 
-    def notify_exempt(self, tasklet) -> None:
-        """A tasklet entered a terminal phase; re-evaluate completion."""
+    def keep_final(self, tasklet, entries) -> None:
+        """``tasklet`` turned exempt with ``entries`` as its final state
+        (owned copies, ``(key, value, pid)``); re-evaluate completion."""
+        self._kept[id(tasklet)] = (tasklet, entries)
         self._check()
 
     def _check(self) -> None:
@@ -396,9 +443,25 @@ class SnapshotContext:
             return
         if all(id(t) in self._acked or t.is_snapshot_exempt
                for t in self.tasklets):
+            self._write_kept(self.requested_id)
             self.completed_id = self.requested_id
             if self.on_complete is not None:
                 self.on_complete(self.completed_id)
+
+    def _write_kept(self, snapshot_id: int) -> None:
+        """Write the final entries of every exempt tasklet that did not
+        ack ``snapshot_id`` into it (class docstring).  In process they
+        land in the snapshot's IMap before the commit; in a worker
+        process the buffering writer ships them with the worker's ack."""
+        writer = self.writer
+        if writer is None:
+            return
+        for tid, (t, entries) in self._kept.items():
+            if tid in self._acked:
+                continue        # its barrier entries are in already
+            for key, value, pid in entries:
+                writer.put(snapshot_id, t.vertex_name, key, value, pid,
+                           instance=t.global_index)
 
 
 class ProcessorTasklet:
@@ -473,6 +536,10 @@ class ProcessorTasklet:
         self.coalescer = WatermarkCoalescer(len(in_queues)) if in_queues else None
         self.state = RUNNING
         self.snapshot_in_progress: Optional[int] = None
+        #: the final snapshot entries once ``complete()`` returned True
+        #: (``_keep_final_state``); from then on the tasklet is exempt
+        self._final_entries: Optional[list] = None
+        self._final_kept = False
         #: snapshot id waiting for the inboxes to drain before it may start
         self._armed_snapshot: Optional[int] = None
         self.last_snapshot_id = 0
@@ -547,6 +614,7 @@ class ProcessorTasklet:
             progress |= emitted
             if done:
                 self.state = EMITTING_DONE
+                self._keep_final_state()
                 return True
             return progress
 
@@ -593,8 +661,8 @@ class ProcessorTasklet:
         if (self.state == RUNNING and self.in_queues
                 and not self._nonempty_inboxes
                 and all(iq.done for iq in self.in_queues)):
+            # not exempt yet: complete() may still emit a tail (F10)
             self.state = COMPLETING
-            self.ssctx.notify_exempt(self)
             progress = True
         return progress
 
@@ -749,19 +817,52 @@ class ProcessorTasklet:
         ok = self.processor.save_to_snapshot()
         # drain snapshotted state into the store
         writer = self.ssctx.writer
-        if writer is not None:
-            for key, value in self.outbox.snapshot_queue:
-                pid = (self._snapshot_pid_fn(key)
-                       if self._snapshot_pid_fn is not None else None)
-                if pid is None:
-                    pid = hash(key) % PARTITION_COUNT
+        for key, value, pid in self._take_snapshot_queue():
+            if writer is not None:
                 writer.put(self.snapshot_in_progress, self.vertex_name,
                            key, value, pid, instance=self.global_index)
-        self.outbox.snapshot_queue.clear()
         self._flush_outbox()
         if ok:
             self._barrier_to_emit = Barrier(self.snapshot_in_progress)
             self.state = EMITTING_BARRIER
+        return True
+
+    def _take_snapshot_queue(self) -> list:
+        """``(key, value, pid)`` for what ``save_to_snapshot`` offered, in
+        the store's partition rule: the processor's ``snapshot_partition``,
+        else ``hash(key) % PARTITION_COUNT``."""
+        queue = self.outbox.snapshot_queue
+        pid_fn = self._snapshot_pid_fn
+        out = []
+        for key, value in queue:
+            pid = pid_fn(key) if pid_fn is not None else None
+            if pid is None:
+                pid = hash(key) % PARTITION_COUNT
+            out.append((key, value, pid))
+        queue.clear()
+        return out
+
+    def _keep_final_state(self) -> bool:
+        """Run ``save_to_snapshot`` once more now that ``complete()``
+        returned True, and leave what it offered with the snapshot
+        context, which writes it into every later snapshot this tasklet
+        does not ack (``SnapshotContext`` has the consistency argument).
+        Values are owned copies, as the store's writer takes them.  The
+        tasklet is exempt from here on; returns False while
+        ``save_to_snapshot`` asks to be called again."""
+        if self.ssctx.guarantee == GUARANTEE_NONE:
+            self._final_kept = True
+            return True
+        ok = self.processor.save_to_snapshot()
+        entries = self._final_entries
+        if entries is None:
+            entries = self._final_entries = []
+        entries.extend((key, own_snapshot_value(value), pid)
+                       for key, value, pid in self._take_snapshot_queue())
+        if not ok:
+            return False
+        self._final_kept = True
+        self.ssctx.keep_final(self, entries)
         return True
 
     def _emit_barrier_slice(self) -> bool:
@@ -799,15 +900,17 @@ class ProcessorTasklet:
         self._flush_outbox()
         if done:
             self.state = EMITTING_DONE
+            self._keep_final_state()
         return True
 
     def _emit_done_slice(self) -> bool:
+        if not self._final_kept and not self._keep_final_state():
+            return True
         for c in self.collectors:
             if not c.broadcast(DONE):
                 return True
         self.state = DONE_STATE
         self.processor.close()
-        self.ssctx.notify_exempt(self)
         return True
 
     # --------------------------------------------------------------- outbox --
@@ -949,9 +1052,10 @@ class ProcessorTasklet:
 
     @property
     def is_snapshot_exempt(self) -> bool:
-        """True when this tasklet can no longer receive a barrier: its
-        inputs are exhausted (or it is a source that already finished)."""
-        return self.state in (COMPLETING, EMITTING_DONE, DONE_STATE)
+        """True once ``complete()`` returned True and the final state was
+        kept (``_keep_final_state``): the tasklet will never see another
+        barrier.  A non-source in COMPLETING is not exempt (F10)."""
+        return self._final_kept
 
     def __repr__(self):  # pragma: no cover
         return f"Tasklet({self.name}, state={self.state})"

@@ -164,9 +164,18 @@ class _BufferWriter:
         self.entries.append((snapshot_id, vertex, key,
                              own_snapshot_value(value), pid, instance))
 
-    def take(self) -> List[Tuple]:
-        entries, self.entries = self.entries, []
-        return entries
+    def take(self, snapshot_id: int) -> List[Tuple]:
+        """The entries of ``snapshot_id``.  Entries of a later id stay
+        buffered (tasklets that aligned on its barrier before this worker
+        began it, F11); those of an earlier, aborted id go."""
+        out, keep = [], []
+        for entry in self.entries:
+            if entry[0] == snapshot_id:
+                out.append(entry)
+            elif entry[0] > snapshot_id:
+                keep.append(entry)
+        self.entries = keep
+        return out
 
 
 def _sink_list(processor) -> Optional[list]:
@@ -240,7 +249,7 @@ def _worker_main(execution, key: Location, conn) -> None:
             # restore never replays them: left for the next periodic
             # ship, they die with the worker if it is killed first
             _ship_results(conn, sinks)
-            conn.send(("ack", snapshot_id, writer.take()))
+            conn.send(("ack", snapshot_id, writer.take(snapshot_id)))
 
         local_ctx.on_complete = _acked
         worker = CooperativeWorker(f"n{key[0]}-w{key[1]}")
