@@ -85,7 +85,8 @@ the run with a non-zero exit and no result line:
 11. timing: Q5's wall a step with the fused accumulate against the plain
     one, in turns; each kernel at its path's shape beside its plain
     version, its library yardstick and its bound (``decode_attention``
-    also at the ``decode_32k`` shape);
+    also at the ``decode_32k`` shape, and there with ``lo`` on mixtral's
+    linear sliding-window cache: the last 4 096 of 32 768 rows);
     ptxas' registers, spills and shared memory of the new kernels and
     route_pack's cluster; then a profiled stretch of each path (device
     time by kernel, the device's idle share; Q5 also with the plain
@@ -4032,13 +4033,21 @@ def decode_timing_cases(dev):
     the path, the 134 MB read does not sit in the 50 MB L2; decode_32k is
     bf16 at B = 128, S = 32 768 with qwen2's heads.  The yardstick is one
     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on head-major
-    copies, which the port never calls; None where it does not run."""
+    copies, which the port never calls; None where it does not run.
+    ``decode_32k_window`` is mixtral-8x7b's linear sliding-window cache at
+    ``decode_32k``: bf16, B = 128, 32 over 8 heads, a 32 768-row cache read
+    from ``lo`` on, the last ``swa_window`` (4 096) rows; its yardstick
+    runs on head-major copies of the window alone."""
     d32 = SHAPES["decode_32k"]
-    shapes = {"serve": (8, 12, 2, 1024, 128, torch.float32, 8, 200),
+    window = get_config("mixtral-8x7b").swa_window
+    shapes = {"serve": (8, 12, 2, 1024, 128, torch.float32, 8, 200, 0),
               "decode_32k": (d32.global_batch, 12, 2, d32.seq_len, 128,
-                             torch.bfloat16, 1, 10)}
+                             torch.bfloat16, 1, 10, 0),
+              "decode_32k_window": (d32.global_batch, 32, 8, d32.seq_len,
+                                    128, torch.bfloat16, 1, 10,
+                                    d32.seq_len - window)}
     gen = torch.Generator(device=dev).manual_seed(3)
-    for label, (b, h, hk, s, dh, dt, copies, iters) in shapes.items():
+    for label, (b, h, hk, s, dh, dt, copies, iters, lo) in shapes.items():
         def draw(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dt)
 
@@ -4046,7 +4055,8 @@ def decode_timing_cases(dev):
         q = draw(b, h, dh)
         kv = [tuple(draw(b, s, hk, dh).permute(0, 2, 1, 3) for _ in "kv")
               for _ in range(copies)]
-        heads = [(k.contiguous(), v.contiguous()) for k, v in kv]
+        heads = [(k[:, :, lo:].contiguous(), v[:, :, lo:].contiguous())
+                 for k, v in kv]
         turn = [0]
 
         def rotating(fn, pairs):
@@ -4057,9 +4067,10 @@ def decode_timing_cases(dev):
             return call
 
         fns = {"kernel": rotating(
-                   lambda k, v: decode_attention(q, k, v, pos), kv),
+                   lambda k, v: decode_attention(q, k, v, pos, lo), kv),
                "plain": rotating(
-                   lambda k, v: decode_attention_plain(q, k, v, pos), kv),
+                   lambda k, v: decode_attention_plain(q, k, v, pos, lo),
+                   kv),
                "library": rotating(
                    lambda k, v: F.scaled_dot_product_attention(
                        q.unsqueeze(2), k, v, enable_gqa=True), heads)}
@@ -4067,12 +4078,13 @@ def decode_timing_cases(dev):
             lib_out = F.scaled_dot_product_attention(
                 q.unsqueeze(2), *heads[0], enable_gqa=True)[:, :, 0]
             torch.testing.assert_close(lib_out.float(),
-                                       decode_attention(q, *kv[0], pos),
+                                       decode_attention(q, *kv[0], pos,
+                                                        lo),
                                        rtol=LIB_TOL[dt], atol=LIB_TOL[dt])
         except RuntimeError as e:
             log(f"decode_attention {label}: no library yardstick ({e})")
             del fns["library"]
-        yield label, (b, h, hk, s, dh, dt, pos), iters, fns
+        yield label, (b, h, hk, s, dh, dt, pos, lo), iters, fns
         del q, kv, heads, fns
         torch.cuda.empty_cache()
 
@@ -4118,9 +4130,10 @@ def decode_kernel_resources(dev, dtype, dh) -> dict:
 
 def time_decode_attention(dev) -> dict:
     """decode_attention beside its plain version and its library yardstick
-    by CUDA events, in turns, and its bound; before any profiler runs."""
+    by CUDA events, in turns, and its bound (the ``pos + 1 - lo`` rows it
+    reads); before any profiler runs."""
     res = {}
-    for label, (b, h, hk, s, dh, dt, pos), iters, fns in \
+    for label, (b, h, hk, s, dh, dt, pos, lo), iters, fns in \
             decode_timing_cases(dev):
         warm = 5 if iters > 20 else 2
         times = {}
@@ -4128,9 +4141,11 @@ def time_decode_attention(dev) -> dict:
             if which in fns:
                 times.setdefault(which, []).append(
                     cuda_ms(fns[which], iters=iters, warmup=warm))
-        bound_ms, bound_by, nbytes = attention_bound(b, h, hk, s, dh, dt)
+        bound_ms, bound_by, nbytes = attention_bound(b, h, hk, pos + 1 - lo,
+                                                     dh, dt)
         res[label] = {
             "shape": [b, h, hk, s, dh], "dtype": str(dt)[6:], "pos": pos,
+            "lo": lo,
             "ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
             "library_ms": min(times["library"]) if "library" in times
             else None,
@@ -4144,7 +4159,9 @@ def time_decode_attention(dev) -> dict:
     return {"ms": serve["ms"], "plain_ms": serve["plain_ms"],
             "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
             "library_ms": serve["library_ms"],
-            "decode_32k": res["decode_32k"], "serve_shape": serve}
+            "decode_32k": res["decode_32k"],
+            "decode_32k_window": res["decode_32k_window"],
+            "serve_shape": serve}
 
 
 def profile_decode_attention(dev, timing: dict) -> None:

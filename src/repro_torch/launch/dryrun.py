@@ -51,6 +51,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, _FlopCounterMode
 
 from ..configs import SHAPES, applicable_cells
+from ..models.layers import repeat, repeats
 from ..sharding import constraints
 from .mesh import make_production_mesh
 from .specs import argument_bytes, argument_tensors, build_cell
@@ -93,7 +94,8 @@ class _LocalFlops(_FlopCounterMode):
     op is handed on (``NotImplemented``) and counted in its local ops, as
     ``CommDebugMode`` sees the collectives.  Ops run as they come (no
     decomposition): the products, which the formulas cover, are aten ops
-    of their own."""
+    of their own.  Each op counts :func:`layers.repeats` times (a meta
+    scan's one step for many)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -101,8 +103,13 @@ class _LocalFlops(_FlopCounterMode):
         out = func(*args, **(kwargs or {}))
         if not _local_op(types) or isinstance(out, FakeTensor):
             return out
-        return self.counter._count_flops(func._overloadpacket, out, args,
-                                         kwargs or {})
+        counter, packet = self.counter, func._overloadpacket
+        if packet in counter.flop_registry:
+            n = counter.flop_registry[packet](*args, **(kwargs or {}),
+                                              out_val=out) * repeats()
+            for par in set(counter.mod_tracker.parents):
+                counter.flop_counts[par][packet] += n
+        return out
 
 
 class LocalFlopCounter(FlopCounterMode):
@@ -141,19 +148,22 @@ class CollectiveCounter(CommDebugMode):
     """``CommDebugMode``'s calls by kind, and the bytes of each call's
     input (its first argument: the tensor, or the list of tensors, that the
     rank hands in); c10d's in-place ops (a ``local_map`` body's) count
-    under the functional collectives' names."""
+    under the functional collectives' names.  Each call counts
+    :func:`layers.repeats` times (a meta scan's one step for many)."""
 
     def __init__(self):
         super().__init__()
         self.bytes = defaultdict(int)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        before = sum(self.comm_counts.values())
+        before = dict(self.comm_counts)
         out = super().__torch_dispatch__(func, types, args, kwargs)
-        if out is not NotImplemented and \
-                sum(self.comm_counts.values()) > before:
+        if out is not NotImplemented and self.comm_counts != before:
+            n = repeats()
+            for k, v in list(self.comm_counts.items()):
+                self.comm_counts[k] += (v - before.get(k, 0)) * (n - 1)
             name = _kind(func._overloadpacket.__name__)
-            self.bytes[name] += sum(
+            self.bytes[name] += n * sum(
                 t.numel() * t.element_size() for t in _tensors(args[:1]))
         return out
 
@@ -225,7 +235,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         constraints.set_mesh(mesh)
         try:
             t1 = time.time()
-            with memory, flops, comms:
+            # repeat(1): whatever a step that raised left on the scope,
+            # the next cell starts from 1
+            with memory, flops, comms, repeat(1):
                 cell.fn(*cell.args)
             t_step = time.time() - t1
         finally:

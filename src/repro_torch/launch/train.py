@@ -60,17 +60,19 @@ def make_trainer(cfg, *, steps: int, lr: float = 3e-4,
                  remat_policy: str = "nothing", seed: int = 0, device=None,
                  mesh=None):
     """``(state, step_fn)``: float32 parameters from ``seed`` and a fresh
-    AdamW state on ``device``, and the train step, with the reference's
+    AdamW state on ``device`` (the card unless one is named:
+    ``devices.resolve_device``), and the train step, with the reference's
     schedule (warm-up over ``max(2, steps // 20)`` steps, cosine decay to
     ``steps``).  With ``mesh``, the parameters are drawn whole and each
     rank keeps its shards (``rules.state_sharding``); the moments and
     ``step`` follow as DTensors."""
+    device = resolve_device(device, "make_trainer")
     opt = AdamW(lr=lr, warmup_steps=max(2, steps // 20), total_steps=steps)
     step_fn = lm.make_train_step(cfg, opt, compute_dtype=compute_dtype,
                                  remat_policy=remat_policy,
                                  microbatches=microbatches)
-    gen = torch.Generator(device="cpu" if torch.device(
-        device or "cpu").type == "meta" else device).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if device.type == "meta"
+                          else device).manual_seed(seed)
     params = lm.init_params(cfg, gen, torch.float32, device=device)
     step = torch.zeros((), dtype=torch.int32, device=device)
     if mesh is not None:

@@ -4,13 +4,17 @@ The port of ``repro/models/layers.py``.  Parameters are plain tensors in
 dicts (an ``nn.ParameterDict`` in the model) with the reference's names,
 shapes and ``(in, out)`` weight layout, so ``x @ w`` reads the same in
 both packages.  ``chunked_time_scan`` is the recurrent families' scan over
-time (Mamba, RWKV-6).
+time (Mamba, RWKV-6); over meta tensors it takes a counting path that the
+dry run reads through :func:`repeats`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
-from typing import Callable, Dict, Tuple
+import weakref
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -143,6 +147,190 @@ def _scan_per_shard(step: Callable, init, xs, chunk: int, consts):
         device_mesh=mesh)(*ins)
 
 
+#: how many steps the ops dispatched now stand for; ``repeat(n)`` sets it
+_REPEATS: List[int] = [1]
+
+
+def repeats() -> int:
+    """How many times the op being dispatched stands for itself: 1, or the
+    steps of a chunk that one call of a meta scan's ``step`` runs for (the
+    dry run's FLOP and collective counters weight each op by it; 0 for a
+    call that no counter should see)."""
+    return _REPEATS[-1]
+
+
+@contextlib.contextmanager
+def repeat(n: int) -> Iterator[None]:
+    """Ops dispatched in the block stand for ``n`` of themselves; on the
+    way out the scope is as it was on the way in, whatever a backward
+    node's hooks (:func:`_repeat_in_backward`) left on it."""
+    depth = len(_REPEATS)
+    _REPEATS.append(n)
+    try:
+        yield
+    finally:
+        del _REPEATS[depth:]
+
+
+@dataclasses.dataclass
+class _StepProfile:
+    """What one step of a scan allocates that outlives it: its outputs
+    ``ys`` (shapes and types), its carry's bytes, and where a graph is
+    built, the bytes of the storages it creates and saves for its backward
+    (``saved``) and whether it saves its input and its output carry."""
+    ys: list
+    carry_bytes: int
+    saved: int = 0
+    saves_input_carry: bool = False
+    saves_output_carry: bool = False
+
+    def held(self, c: int) -> int:
+        """The bytes that steps 0 to ``c - 3`` of a chunk hold for the
+        backward when the chunk is recomputed, less the carry that
+        :func:`_counted_chunk` allocates for step ``c - 3`` itself: each
+        step its own saved storages, and its input carry where that is not
+        the previous step's saved output."""
+        extra = self.carry_bytes if (self.saves_input_carry and not
+                                     self.saves_output_carry) else 0
+        return ((c - 2) * (self.saved + extra)
+                - self.carry_bytes * self.saves_input_carry)
+
+
+def _profile_step(step: Callable, carry, x_t, consts, graph: bool
+                  ) -> _StepProfile | None:
+    """One step on the scan's first inputs, which no counter sees
+    (``repeat(0)``), as the steps in the middle of a chunk run: with the
+    carry in the graph where one is built.  None where the counting path
+    cannot stand in for the steps (an output that does not own its
+    storage): the scan then steps."""
+    # storages are told apart by their Python objects, one a storage (as
+    # the dry run's live-bytes counter also relies on)
+    inputs = [t.untyped_storage() for t in (carry, *_tensors(x_t), *consts)]
+    seen, packed, saves_input = weakref.WeakSet(), [0], [False]
+
+    def pack(t):
+        s = t.untyped_storage()
+        if s is inputs[0]:
+            saves_input[0] = True
+        elif s not in seen and not any(s is o for o in inputs):
+            seen.add(s)
+            packed[0] += s.nbytes()
+
+    with repeat(0), contextlib.ExitStack() as stack:
+        if graph:
+            stack.enter_context(torch.enable_grad())
+            stack.enter_context(
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda _: None))
+            carry = carry.detach().requires_grad_(True)
+        else:
+            stack.enter_context(torch.no_grad())
+        new, y = step(carry, x_t, *consts)
+    ys = _tensors(y)
+    if any(t.untyped_storage().nbytes() != t.numel() * t.element_size()
+           for t in ys):
+        return None
+    return _StepProfile(
+        ys=[(t.shape, t.dtype) for t in ys],
+        carry_bytes=new.untyped_storage().nbytes(), saved=packed[0],
+        saves_input_carry=saves_input[0],
+        saves_output_carry=new.untyped_storage() in seen)
+
+
+class _StandIn(torch.autograd.Function):
+    """Steps 0 to ``c - 3`` of a chunk in the counting path: returns a carry
+    shaped as ``carry`` (step ``c - 3``'s) that depends on the chunk's
+    inputs, and holds ``held`` bytes for the backward (what those steps
+    save); the gradient passes to the chunk's first carry unchanged."""
+
+    @staticmethod
+    def forward(ctx, carry, held: int, *xs):
+        ctx.save_for_backward(torch.empty((held,), dtype=torch.uint8,
+                                          device=carry.device))
+        return torch.empty_like(carry)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad, None) + (None,) * (len(ctx.needs_input_grad) - 2)
+
+
+def _repeat_in_backward(outs, ins, n: int) -> None:
+    """Weight by ``n`` the backward of the ops between tensors ``ins`` and
+    ``outs`` (one step's graph): each of their nodes enters ``repeat(n)``
+    before it runs and leaves after."""
+    stop = {t.grad_fn for t in ins if t.grad_fn is not None}
+    todo = [t.grad_fn for t in outs if t.grad_fn is not None]
+    nodes = set()
+    while todo:
+        node = todo.pop()
+        if node in nodes or node in stop or \
+                type(node).__name__ == "AccumulateGrad":
+            continue
+        nodes.add(node)
+        if len(nodes) > 10_000:
+            raise RuntimeError("a scan step's graph reaches past its inputs "
+                               "(a tensor captured by the step, not passed "
+                               "as a const?)")
+        todo.extend(f for f, _ in node.next_functions if f is not None)
+
+    def enter(grads):
+        _REPEATS.append(n)
+
+    def leave(grads_in, grads_out):
+        _REPEATS.pop()
+
+    for node in nodes:
+        node.register_prehook(enter)
+        node.register_hook(leave)
+
+
+def _counted_chunk(step: Callable, consts, tupled: bool, prof: _StepProfile,
+                   graph: bool) -> Callable:
+    """The body of one chunk of ``c >= 3`` steps over meta tensors, in the
+    place of the step-by-step loop: two calls of ``step``, as step ``c - 2``
+    for steps 0 to ``c - 2`` (``repeat(c - 1)``, in its backward too) and as
+    step ``c - 1``; the outputs of steps 0 to ``c - 3`` and the carry of
+    step ``c - 3`` are allocations of their size, and where the chunk is
+    recomputed for its backward (its second call), :class:`_StandIn` holds
+    what those steps would save.  A fresh body a chunk: its calls tell the
+    checkpointed forward from the recompute."""
+    calls = [0]
+
+    def body(carry, *x_chunk):
+        calls[0] += 1
+        c = x_chunk[0].shape[0]
+
+        def x_at(t):
+            x_t = tuple(x[t] for x in x_chunk)
+            return x_t if tupled else x_t[0]
+
+        with repeat(1):
+            stubs = [torch.empty((c - 2, *shape), dtype=dtype,
+                                 device=carry.device)
+                     for shape, dtype in prof.ys]
+            if graph:
+                held = prof.held(c) if calls[0] > 1 else 0
+                prev = _StandIn.apply(carry, held, *x_chunk)
+            else:
+                prev = torch.empty_like(carry)
+            x_t = x_at(c - 2)
+            with repeat(c - 1):
+                mid, y_mid = step(prev, x_t, *consts)
+            if graph and calls[0] == 1:
+                _repeat_in_backward((mid, *_tensors(y_mid)),
+                                    (prev, *_tensors(x_t), *consts), c - 1)
+            del prev
+            carry, y_last = step(mid, x_at(c - 1), *consts)
+            ys = tuple(torch.cat([stub, a[None], b[None]]) for stub, a, b
+                       in zip(stubs, _tensors(y_mid), _tensors(y_last)))
+        return carry, ys if isinstance(y_last, tuple) else ys[0]
+
+    return body
+
+
+def _tensors(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
 def chunked_time_scan(step: Callable, init, xs, chunk: int = 256,
                       consts: tuple = ()) -> Tuple[object, object]:
     """``carry, y = step(carry, x_t, *consts)`` over the time-major
@@ -158,7 +346,21 @@ def chunked_time_scan(step: Callable, init, xs, chunk: int = 256,
     graph is built each chunk is checkpointed: the backward pass keeps the
     carry only at chunk boundaries and runs a chunk again to get its
     steps', O(T / chunk + chunk) carries instead of O(T).  The values do
-    not depend on ``chunk``."""
+    not depend on ``chunk``.
+
+    Over meta tensors (the dry run), where a chunk has 3 steps or more,
+    the scan counts instead of stepping: each chunk calls ``step`` twice
+    (:func:`_counted_chunk`), O(T / chunk) calls in all.  Its contract:
+    under the dry run's counters (``launch/dryrun.py``) it gives the same
+    FLOPs and collective calls and bytes as the step-by-step loop (each op
+    of the two calls weighted by the steps it stands for, :func:`repeats`,
+    in the backward too), and the same peak of live bytes (at each step of
+    the loop where its live bytes peak, in the forward, the chunk's
+    recompute and its backward, the same bytes are alive, the steps it
+    does not run standing in as allocations of their size).  This holds
+    for a ``step`` that is a function of its arguments alone and returns
+    outputs of its own, as Mamba's and RWKV-6's are.  On every other
+    device the scan steps through time."""
     seq = xs if isinstance(xs, tuple) else (xs,)
     if isinstance(seq[0], DTensor):
         return _scan_per_shard(step, init, xs, chunk, consts)
@@ -166,6 +368,7 @@ def chunked_time_scan(step: Callable, init, xs, chunk: int = 256,
     c = min(chunk, T)
     while T % c:
         c //= 2
+    graph = torch.is_grad_enabled() and any(x.requires_grad for x in seq)
 
     def run(carry, *x_chunk):
         ys = []
@@ -178,11 +381,24 @@ def chunked_time_scan(step: Callable, init, xs, chunk: int = 256,
             return carry, tuple(torch.stack(y) for y in zip(*ys))
         return carry, torch.stack(ys)
 
-    if torch.is_grad_enabled() and any(x.requires_grad for x in seq):
-        run = functools.partial(checkpoint, run, use_reentrant=False)
+    prof = None
+    if c >= 3 and seq[0].device.type == "meta":
+        x0 = tuple(x[0] for x in seq)
+        prof = _profile_step(step, init, x0 if isinstance(xs, tuple)
+                             else x0[0], consts, graph)
     carry, chunks = init, []
     for lo in range(0, T, c):
-        carry, ys = run(carry, *(x[lo:lo + c] for x in seq))
+        body, kw = run, {}
+        if prof is not None:
+            body = _counted_chunk(step, consts, isinstance(xs, tuple), prof,
+                                  graph)
+            # the stand-in saves no bytes in the forward, its held bytes
+            # in the recompute
+            kw = {"determinism_check": "none"}
+        if graph:
+            body = functools.partial(checkpoint, body, use_reentrant=False,
+                                     **kw)
+        carry, ys = body(carry, *(x[lo:lo + c] for x in seq))
         chunks.append(ys)
     if isinstance(chunks[0], tuple):
         return carry, tuple(torch.cat(y) for y in zip(*chunks))

@@ -117,7 +117,9 @@ def mamba(params, x: torch.Tensor, cfg, compute_dtype,
         y = (y * F.silu(z.float())).to(compute_dtype)
         out = y @ params["out_proj"].to(compute_dtype)
         if return_state:
-            return out, {"h": h_last, "conv": conv_tail}
+            # conv_tail is a view of the whole padded input: a copy lets
+            # that go (F12)
+            return out, {"h": h_last, "conv": conv_tail.clone()}
         return out, None
 
     # -- decode: single step --------------------------------------------------

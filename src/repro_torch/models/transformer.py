@@ -239,7 +239,12 @@ def apply_block(bp: Block, x: torch.Tensor, kind: str, ffn_kind: str, cfg,
             for name, t in new_cache.items():
                 cache[name].copy_(t)
             new_cache = cache
-        elif not collect_cache:
+        elif collect_cache:
+            # the shift states are views of the whole (B, S, D) inputs:
+            # copies let those go (F12)
+            new_cache.update(tm_shift=tm_shift.clone(),
+                             cm_shift=cm_shift.clone())
+        else:
             new_cache = None
         return x + gather_seq(y2), aux, new_cache
     else:

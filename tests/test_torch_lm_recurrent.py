@@ -219,6 +219,28 @@ def test_decode_step_matches_jax(arch):
                                            **TOL)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-v0.1-52b"])
+def test_prefill_state_owns_its_storage(arch):
+    """F12: the recurrent state a prefill hands over (RWKV-6's shift
+    states, Mamba's conv tail and state) holds no more than its own bytes,
+    not a view that keeps a layer's whole (B, S, D) input alive."""
+    cfg, jcfg = _cfgs(arch)
+    tokens = torch.from_numpy(
+        np.random.RandomState(7).randint(0, 256, (2, 24)).astype(np.int64))
+    _, caches = transformer.prefill(cfg, _port_params(cfg, jcfg),
+                                    tokens=tokens, compute_dtype=F32)
+    assert len(caches) == cfg.n_layers
+    states = [(l, k, t) for l, c in enumerate(caches)
+              if transformer.layer_kinds(cfg, l)[0] != "attn"
+              for k, t in c.items()]
+    assert {k for _, k, _ in states} == (
+        {"wkv", "tm_shift", "cm_shift"} if arch.startswith("rwkv")
+        else {"h", "conv"})
+    for l, k, t in states:
+        assert t.untyped_storage().nbytes() == t.numel() * \
+            t.element_size(), f"layer {l} {k}"
+
+
 def test_rwkv6_block_has_no_ffn():
     cfg = get_config("rwkv6-7b").reduced()
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),

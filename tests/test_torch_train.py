@@ -394,3 +394,18 @@ def test_train_needs_a_card_unless_told_cpu():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "olmo-1b", "--reduced", "--steps", "1"])
+
+
+def test_make_trainer_needs_a_card_unless_given_a_device(monkeypatch):
+    """``make_trainer`` with no device names the card, as every entry point
+    does (``devices.resolve_device``): with none it raises rather than
+    train on the CPU unasked; ``"cpu"`` and ``"meta"`` still work."""
+    cfg = get_config("olmo-1b").reduced()
+    for device in ("cpu", "meta"):
+        state, _ = train.make_trainer(cfg, steps=10, device=device)
+        assert state["step"].device.type == device
+        assert all(p.device.type == device
+                   for p in state["params"].parameters())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.make_trainer(cfg, steps=10)
