@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .. import tracing
 from ..devices import resolve_device
 from ..kernels.route import MAX_DEST, route_pack
 from ..launch.mesh import mesh_ranks
@@ -97,14 +98,17 @@ class StreamExecutor:
     """Single-device executor (``mesh=None``) or this rank's shard of an
     SPMD one over ``mesh``'s ``"data"`` dimension; on ``cuda`` unless
     ``device`` says otherwise (``device="cpu"`` runs every kernel's plain
-    version)."""
+    version).  ``tracer`` (a ``tracing.Tracer``) records the spans of its
+    staging, steps, emission and results (``tracing``'s table); None
+    records nothing."""
 
     #: device-held step outputs are copied to the host in chunks of this
     #: many steps, bounding live buffers without a per-step copy
     COLLECT_CHUNK = 64
 
     def __init__(self, cfg: StreamJobConfig,
-                 mesh: Optional[DeviceMesh] = None, device=None):
+                 mesh: Optional[DeviceMesh] = None, device=None,
+                 tracer: Optional[tracing.Tracer] = None):
         if cfg.exchange not in ("reduce", "route"):
             raise ValueError(f"exchange must be 'reduce' or 'route', got "
                              f"{cfg.exchange!r}")
@@ -115,6 +119,7 @@ class StreamExecutor:
         self.device = resolve_device(device, "the executor")
         self.cfg = cfg
         self.mesh = mesh
+        self.tracer = tracing.NULL if tracer is None else tracer
         spec = cfg.window
         #: this rank's shard index; None where the rank is outside the mesh
         self.rank: Optional[int] = 0
@@ -207,10 +212,12 @@ class StreamExecutor:
         accumulate(spec, dict(state, panes=partial), batch["ts"],
                    batch["key"], batch["value"], batch["valid"],
                    batch.get("wm"))
-        coll.pmin(tr, state["watermark"])
-        state["panes"] += coll.psum_scatter(tr, partial, dim=1)
-        self._replicate_counters(state, late0, conflict0, batch["valid"])
-        coll.pmax(tr, state["slot_frame"])
+        with self.tracer.span("stream.exchange"):
+            coll.pmin(tr, state["watermark"])
+            state["panes"] += coll.psum_scatter(tr, partial, dim=1)
+            self._replicate_counters(state, late0, conflict0,
+                                     batch["valid"])
+            coll.pmax(tr, state["slot_frame"])
         return emit(self._loc_spec, state)
 
     def _step_route(self, state, batch):
@@ -221,30 +228,32 @@ class StreamExecutor:
         wm0 = state["watermark"].clone()
         late0 = state["dropped_late"].clone()
         conflict0 = state["dropped_conflict"].clone()
-        pack = route_pack(ts, batch["key"], batch["value"], valid, n,
-                          self.k_loc, self.capacity, with_pos=False)
-        recv = coll.all_to_all(tr, pack.send)              # (n, 4, C)
-        planes = recv.transpose(0, 1).reshape(4, -1)       # sources in order
+        with self.tracer.span("stream.exchange"):
+            pack = route_pack(ts, batch["key"], batch["value"], valid, n,
+                              self.k_loc, self.capacity, with_pos=False)
+            recv = coll.all_to_all(tr, pack.send)          # (n, 4, C)
+            planes = recv.transpose(0, 1).reshape(4, -1)   # sources in order
         accumulate(self._loc_spec, state, planes[0],
                    planes[1] - self.rank * self.k_loc,
                    planes[2].view(torch.float32), planes[3] != 0,
                    batch.get("wm"))
-        # the watermark frontier comes from the PRE-ROUTE local slice,
-        # trailing by wm_lag; pmin, then the hint (executor.py:221-230)
-        wm = wm0
-        if spec.frontier_from_data:
-            frontier = torch.where(valid, ts, -1).amax().to(torch.int32) \
-                - spec.wm_lag
-            wm = torch.maximum(frontier, wm0)
-        coll.pmin(tr, wm)
-        hint = batch.get("wm")
-        if hint is not None:
-            wm = torch.maximum(wm, torch.as_tensor(hint, dtype=torch.int32,
-                                                   device=wm.device))
-        state["watermark"].copy_(wm)
-        coll.pmax(tr, state["slot_frame"])
-        self._replicate_counters(state, late0, conflict0, valid,
-                                 pack.n_overflow)
+        with self.tracer.span("stream.exchange"):
+            # the watermark frontier comes from the PRE-ROUTE local slice,
+            # trailing by wm_lag; pmin, then the hint (executor.py:221-230)
+            wm = wm0
+            if spec.frontier_from_data:
+                frontier = torch.where(valid, ts, -1).amax().to(
+                    torch.int32) - spec.wm_lag
+                wm = torch.maximum(frontier, wm0)
+            coll.pmin(tr, wm)
+            hint = batch.get("wm")
+            if hint is not None:
+                wm = torch.maximum(wm, torch.as_tensor(
+                    hint, dtype=torch.int32, device=wm.device))
+            state["watermark"].copy_(wm)
+            coll.pmax(tr, state["slot_frame"])
+            self._replicate_counters(state, late0, conflict0, valid,
+                                     pack.n_overflow)
         return emit(self._loc_spec, state)
 
     def step(self, state, batch, valid_count: Optional[int] = None):
@@ -259,15 +268,16 @@ class StreamExecutor:
         if batch["ts"].device != self.device:
             raise ValueError(f"batch on {batch['ts'].device}, executor on "
                              f"{self.device}: stage it with stage_batch")
-        if self.mesh is None:
-            state, out = window_step(self.cfg.window, state, batch)
-            if valid_count is None:
-                valid_count = int(batch["valid"].sum())
-            self._processed_since_ack += valid_count
-        elif self.cfg.exchange == "route":
-            state, out = self._step_route(state, batch)
-        else:
-            state, out = self._step_reduce(state, batch)
+        with tracing.activate(self.tracer), self.tracer.span("stream.step"):
+            if self.mesh is None:
+                state, out = window_step(self.cfg.window, state, batch)
+                if valid_count is None:
+                    valid_count = int(batch["valid"].sum())
+                self._processed_since_ack += valid_count
+            elif self.cfg.exchange == "route":
+                state, out = self._step_route(state, batch)
+            else:
+                state, out = self._step_reduce(state, batch)
         self.emit_rounds += out["rounds"]
         self.host_syncs += out["host_syncs"]
         return state, out
@@ -289,6 +299,10 @@ class StreamExecutor:
         loop never syncs for it.
         """
         self._require_shard()
+        with self.tracer.span("stream.stage"):
+            return self._stage(batch)
+
+    def _stage(self, batch: Dict) -> Tuple[Dict, int]:
         lo = self.rank * self.b_loc
         staged, count = {}, 0
         for k, v in batch.items():
@@ -308,7 +322,8 @@ class StreamExecutor:
                         f"slice ({self.b_loc})")
             if self.device.type == "cuda":
                 if not t.is_pinned():
-                    t = t.pin_memory()
+                    with self.tracer.span("stream.stage.pin"):
+                        t = t.pin_memory()
                 t = t.to(self.device, non_blocking=True)
             staged[k] = t
         return staged, count
@@ -462,11 +477,13 @@ class StreamExecutor:
         state = self.init_state()
         results: List[Tuple[np.ndarray, np.ndarray]] = []
         pending = []
+        tracer = self.tracer
 
         def _harvest():
-            for ends, rows in pending:
-                results.append((ends.cpu().numpy(), rows.cpu().numpy()))
-            pending.clear()
+            with tracer.span("stream.harvest"):
+                for ends, rows in pending:
+                    results.append((ends.cpu().numpy(), rows.cpu().numpy()))
+                pending.clear()
 
         B = self.cfg.batch_size
         lo = self.rank * self.b_loc
@@ -475,21 +492,28 @@ class StreamExecutor:
         def events(i):
             return event_gen(i * B + lo, self.b_loc)
 
+        # a batch's staging carries the index of the step that runs it;
+        # indices run on from the tracer's last stream
+        first = tracer.step
         nxt, nxt_count = self.stage_batch(events(0))
         for i in range(n_steps):
             batch, count = nxt, nxt_count
             if i + 1 < n_steps:
                 # pipelining: next batch's transfer is queued ahead of this
                 # step's kernels
+                tracer.at_step(first + i + 1)
                 nxt, nxt_count = self.stage_batch(events(i + 1))
+            tracer.at_step(first + i)
             state, out = self.step(state, batch, valid_count=count)
             if snap_every and (i + 1) % snap_every == 0:
                 self._last_backup = self.snapshot(state)
             n = out["rows"]
             if collect and n:
-                pending.append((out["window_ends"][:n].clone(),
-                                out["results"][:n].clone()))
+                with tracer.span("stream.collect"):
+                    pending.append((out["window_ends"][:n].clone(),
+                                    out["results"][:n].clone()))
                 if len(pending) >= self.COLLECT_CHUNK:
                     _harvest()
         _harvest()
+        tracer.at_step(first + n_steps)
         return state, results

@@ -52,6 +52,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels.window_agg import accumulate_
 from ..devices import ieee_fp32_matmul
 
@@ -137,12 +138,13 @@ def accumulate(spec: VectorWindowSpec, state: Dict, ts, key_bucket, value,
     if tuple(state["panes"].shape) != shape:
         raise ValueError(f"panes of shape {tuple(state['panes'].shape)}, "
                          f"the spec's are {shape}")
-    return accumulate_(state, ts, key_bucket, value, valid,
-                       slide_ms=spec.slide_ms,
-                       frames_per_window=spec.frames_per_window,
-                       wm_lag=spec.wm_lag,
-                       frontier_from_data=spec.frontier_from_data,
-                       wm_hint=wm_hint)
+    with tracing.active().span("stream.accumulate"):
+        return accumulate_(state, ts, key_bucket, value, valid,
+                           slide_ms=spec.slide_ms,
+                           frames_per_window=spec.frames_per_window,
+                           wm_lag=spec.wm_lag,
+                           frontier_from_data=spec.frontier_from_data,
+                           wm_hint=wm_hint)
 
 
 def emit(spec: VectorWindowSpec, state: Dict
@@ -153,8 +155,17 @@ def emit(spec: VectorWindowSpec, state: Dict
     Returns ``(state, out)``.  ``out`` holds the reference's outputs
     (``results`` ``(EB, K)``, ``window_ends`` ``(EB,)``, ``valid``
     ``(EB,)``) and three host ints: ``rows`` (the valid rows are exactly
-    the prefix ``[0, rows)``), ``rounds`` and ``host_syncs``.
+    the prefix ``[0, rows)``), ``rounds`` and ``host_syncs``.  The active
+    tracer (``tracing.active()``) gets a ``stream.emit`` span around the
+    call and a ``stream.emit.read`` span around each of the host syncs.
     """
+    tracer = tracing.active()
+    with tracer.span("stream.emit"):
+        return _emit(spec, state, tracer)
+
+
+def _emit(spec: VectorWindowSpec, state: Dict, tracer
+          ) -> Tuple[Dict, Dict[str, object]]:
     K, R, F = spec.n_key_buckets, spec.ring_len, spec.frames_per_window
     slide = spec.slide_ms
     E = spec.max_windows_per_step
@@ -194,7 +205,9 @@ def emit(spec: VectorWindowSpec, state: Dict
     offsets = torch.arange(E, dtype=torch.int32, device=dev) * slide
 
     count = rounds = 0
-    go = bool((ne <= wm) & (ne < _FAR))            # host sync 1
+    start = (ne <= wm) & (ne < _FAR)
+    with tracer.span("stream.emit.read"):
+        go = bool(start)                            # host sync 1
     with ieee_fp32_matmul():
         while go:
             # E candidate windows in ONE matmul: masks (E, R) @ panes (R, K)
@@ -223,7 +236,9 @@ def emit(spec: VectorWindowSpec, state: Dict
             # the round's one host sync: emitted count, loop condition and
             # evicted slots (window.py:249's while_loop, driven from here)
             host = torch.cat([torch.stack([n_emitted, more.to(torch.int32)]),
-                              evict.to(torch.int32)]).cpu().numpy()
+                              evict.to(torch.int32)])
+            with tracer.span("stream.emit.read"):
+                host = host.cpu().numpy()
             # zero only the evicted rows: the reference rewrites the whole
             # (R, K) matrix (window.py:236); in place, the result is equal
             for r in np.flatnonzero(host[2:]).tolist():
