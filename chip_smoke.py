@@ -16,13 +16,14 @@ chip_smoke.py --mesh`` runs phases 1, 2 and 15 alone (on a host with 4
 cards: the ranks over NCCL, a card each).
 
 It drives six paths of the port: device-tier NEXMark Q5 on one card
-(``window_agg``'s library: one fused ``accumulate`` launch a step), LM
-serving (``decode_attention``), Q5 across 4 ranks under the route
-exchange (one ``route_pack`` cluster launch and one ``accumulate`` a rank
-a step), the paper's main path: ``queries.q5(placement="device")``
-through the port's host engine into its ``DeviceWindowProcessor`` (one
-``accumulate`` a device step), and that path through seeded faults, a
-durable snapshot chain and a cold start (one ``accumulate`` a device
+(``window_agg``'s library: one fused ``accumulate`` and one ``emit``
+launch a step), LM serving (``decode_attention``), Q5 across 4 ranks
+under the route exchange (one ``route_pack`` cluster launch, one
+``accumulate`` and one ``emit`` a rank a step), the paper's main path:
+``queries.q5(placement="device")`` through the port's host engine into
+its ``DeviceWindowProcessor`` (one ``accumulate`` and one ``emit`` a
+device step), and that path through seeded faults, a durable snapshot
+chain and a cold start (one ``accumulate`` and one ``emit`` a device
 step, the replays included), every LM family of the registry
 (``decode_attention`` on every attention layer's decode, the rolling and
 the linear sliding-window caches and the int8 cache included), and
@@ -48,7 +49,7 @@ the run with a non-zero exit and no result line:
    at the paper's configuration (10 s window sliding by 10 ms over 10 000
    auctions, 16 384 key buckets, 65 536 events per step), held exactly
    against an independent numpy oracle, with exactly one accumulate
-   launch a step;
+   launch, one emit launch and one host read a step;
 5. latency: Q5's per-step event-to-result latency, one step at a time;
 6. summing: Q5 summing bid prices with TF32 switched on globally, held
    against a float64 oracle (emission must stay full float32);
@@ -84,7 +85,8 @@ the run with a non-zero exit and no result line:
     device time a step;
 11. timing: Q5's wall a step with the fused accumulate against the plain
     one, in turns; each kernel at its path's shape beside its plain
-    version, its library yardstick and its bound (``decode_attention``
+    version, its library yardstick and its bound (``emit`` at a
+    catch-up step of 8 windows; ``decode_attention``
     also at the ``decode_32k`` shape, and there with ``lo`` on mixtral's
     linear sliding-window cache: the last 4 096 of 32 768 rows);
     ptxas' registers, spills and shared memory of the new kernels and
@@ -209,6 +211,7 @@ from repro_torch.core import JOB_FAILED, Job, RestartPolicy  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
     JOB_COMPLETED, ExecutionContext)
 from repro_torch.core.shm_ring import RING_NAME_PREFIX  # noqa: E402
+from repro_torch.devices import ieee_fp32_matmul  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.kernels import _build, decode_attn  # noqa: E402
@@ -218,7 +221,8 @@ from repro_torch.kernels.route import (  # noqa: E402
     pack_cluster, pack_plan, route_counts, route_counts_plain, route_offsets,
     route_offsets_plain, route_pack, route_pack_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
-    accumulate_, accumulate_plain_, window_agg, window_agg_plain_into_)
+    accumulate_, accumulate_plain_, emit_, emit_plain_, window_agg,
+    window_agg_plain_into_)
 from repro_torch.launch.mesh import (  # noqa: E402
     make_data_mesh, make_smoke_mesh, ranks_backend, spawn_ranks)
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -381,6 +385,7 @@ def zero_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     window_agg.launches = 0
     accumulate_.launches = 0
+    emit_.launches = 0
     decode_attention.launches = 0
     route_counts.launches = 0
     route_offsets.launches = 0
@@ -390,6 +395,7 @@ def zero_counts() -> None:
 def launch_counts() -> dict:
     return {"window_agg": window_agg.launches,
             "accumulate": accumulate_.launches,
+            "emit": emit_.launches,
             "decode_attention": decode_attention.launches,
             "route_counts": route_counts.launches,
             "route_offsets": route_offsets.launches,
@@ -1068,7 +1074,9 @@ def main_path(dev, n_steps: int) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = accumulate_.launches
-    others = {k: v for k, v in launch_counts().items() if k != "accumulate"}
+    emits = emit_.launches
+    others = {k: v for k, v in launch_counts().items()
+              if k not in ("accumulate", "emit")}
     if any(others.values()):
         raise AssertionError(f"other kernels launched on the Q5 path: "
                              f"{others}")
@@ -1082,6 +1090,11 @@ def main_path(dev, n_steps: int) -> dict:
     if launches != n_steps:                 # one accumulate launch a step
         raise AssertionError(f"accumulate launched {launches} times in "
                              f"{n_steps} steps")
+    if emits != n_steps or ex.host_syncs != n_steps:
+        # one emit launch and one host read a step
+        raise AssertionError(f"emit launched {emits} times with "
+                             f"{ex.host_syncs} host syncs in {n_steps} "
+                             f"steps")
     bids = int(hist.sum())
     out = {
         "steps": n_steps, "events_per_step": B,
@@ -1106,7 +1119,8 @@ def latency(dev, n_steps: int, warmup: int = 50) -> dict:
     """device_q5_latency's clock: from the batch existing on the host to
     the step's window results being on the host, one step at a time.  Each
     sample splits into staging (pinning and enqueuing the copies), the step
-    (it waits for the device at each emission round) and the sink copy."""
+    (it waits for the device once, at emission's read) and the sink
+    copy."""
     gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
     ex = StreamExecutor(StreamJobConfig(window=SPEC, batch_size=B))
     state = ex.init_state()
@@ -1391,16 +1405,20 @@ def rank_plan(ex, mesh, dev, feed, hist, n_steps: int) -> dict:
     if drops != (0, 0):
         raise AssertionError(f"{cfg.exchange}: dropped (late, conflict) = "
                              f"{drops}")
-    # exactly: one accumulate a step, one route_pack a route step (its
-    # histogram is route_counts' device function inside it), and no
-    # standalone route_counts or route_offsets
-    want = {"window_agg": 0, "accumulate": n_steps, "decode_attention": 0,
+    # exactly: one accumulate and one emit a step, one route_pack a route
+    # step (its histogram is route_counts' device function inside it), and
+    # no standalone route_counts or route_offsets
+    want = {"window_agg": 0, "accumulate": n_steps, "emit": n_steps,
+            "decode_attention": 0,
             "route_counts": 0, "route_offsets": 0,
             "route_pack": n_steps if cfg.exchange == "route" else 0}
     for k, n in want.items():
         if launches[k] != n:
             raise AssertionError(f"{cfg.exchange}: {k} launched "
                                  f"{launches[k]} times in {n_steps} steps")
+    if ex.host_syncs != n_steps:
+        raise AssertionError(f"{cfg.exchange}: {ex.host_syncs} host syncs "
+                             f"in {n_steps} steps")
     return {"steps": n_steps, "windows_checked": n_windows,
             "owned_bids": int(mine.sum()),
             "steps_per_s": n_steps / dt, "wall_ms_per_step": dt / n_steps * 1e3,
@@ -1798,8 +1816,10 @@ def engine_paced(dev, event_s: float = ENGINE_EVENT_S) -> dict:
     if any(counters.values()):
         raise AssertionError(f"drops or collisions: {counters}")
     steps = proc._steps + 1                         # + the warm-up
-    others = {k: v for k, v in launches.items() if k != "accumulate"}
-    if launches["accumulate"] != steps or any(others.values()):
+    others = {k: v for k, v in launches.items()
+              if k not in ("accumulate", "emit")}
+    if launches["accumulate"] != steps or launches["emit"] != steps or \
+            any(others.values()):
         raise AssertionError(f"{launches} in {steps} device steps")
 
     ideal = t0 + (ts + 1) / 1000.0
@@ -1911,14 +1931,16 @@ class DeviceSteps:
         return sum(p._steps + 1 for p in self.procs.values())
 
     def check(self, launches: dict, what: str) -> int:
-        """One ``accumulate`` launch a device step, nothing else, every
-        processor on the card; returns the steps."""
+        """One ``accumulate`` and one ``emit`` launch a device step,
+        nothing else, every processor on the card; returns the steps."""
         steps = self.steps()
         if any(p.executor.device.type != "cuda"
                for p in self.procs.values()):
             raise AssertionError(f"{what}: a device vertex off the card")
-        others = {k: v for k, v in launches.items() if k != "accumulate"}
-        if launches["accumulate"] != steps or any(others.values()):
+        others = {k: v for k, v in launches.items()
+                  if k not in ("accumulate", "emit")}
+        if launches["accumulate"] != steps or launches["emit"] != steps or \
+                any(others.values()):
             raise AssertionError(f"{what}: {launches} in {steps} device "
                                  f"steps")
         return steps
@@ -3896,6 +3918,93 @@ def time_accumulate(dev) -> dict:
     return res
 
 
+def emit_kw(spec) -> dict:
+    return dict(slide_ms=spec.slide_ms,
+                frames_per_window=spec.frames_per_window,
+                max_windows_per_step=spec.max_windows_per_step,
+                buffer_rows=spec.emit_buffer_rows)
+
+
+def time_emit(dev) -> tuple[dict, dict]:
+    """The emit kernel at a catch-up Q5 step (the benchmark's: the paper's
+    ring full with frames 0..1 007, 8 windows due, each retiring a frame)
+    beside the plain version on the card and its library yardstick (the
+    round's (8, 1 008) masks @ the panes by ``torch.matmul``, the masks
+    made ahead), by CUDA events over 200 calls in turns.  Every call starts
+    from the same front and slot frames (two small copies, in each of the
+    first two); the evicted rows stay zero.  The kernel is held against
+    the plain version first, whole state and outputs.  Its bound: the pane
+    rows the windows read, read once, the (EB, K) result buffer and the
+    evicted rows written once, at 3.35 TB/s.  Returns the timings and the
+    three calls, for device time alone (profiler) later."""
+    rng = np.random.RandomState(13)
+    F, R, EB = SPEC.frames_per_window, SPEC.ring_len, SPEC.emit_buffer_rows
+    state = window_state_init(SPEC, device=dev)
+    state["slot_frame"].copy_(torch.arange(R, dtype=torch.int32))
+    state["panes"].copy_(torch.from_numpy(
+        rng.randint(0, 3, (R, K)).astype(np.float32)))
+    state["next_emit"].fill_(F * SLIDE_MS)
+    state["watermark"].fill_(R * SLIDE_MS - 1)
+    kw = emit_kw(SPEC)
+    want = {k: v.clone() for k, v in state.items()}
+    got = {k: v.clone() for k, v in state.items()}
+    _, out = emit_(got, **kw)
+    _, ref = emit_plain_(want, **kw)
+    if (out["rows"], out["rounds"], out["host_syncs"]) != (8, 1, 1) or \
+            (ref["rows"], ref["rounds"]) != (8, 1) or any(
+                not torch.equal(out[k], ref[k])
+                for k in ("results", "window_ends", "valid")) or any(
+                not torch.equal(got[k], want[k]) for k in state):
+        raise AssertionError("emit timing: the kernel and the plain version "
+                             "disagree at the Q5 step")
+    front, frames = state["next_emit"].clone(), state["slot_frame"].clone()
+    states = {w: {k: v.clone() for k, v in state.items()}
+              for w in ("kernel", "plain")}
+
+    def call(which, fn):
+        st = states[which]
+        st["next_emit"].copy_(front)
+        st["slot_frame"].copy_(frames)
+        return fn(st, **kw)
+
+    L = np.arange(F - 1, F + 7)                      # the 8 windows' frames
+    f = np.arange(R)
+    masks = torch.from_numpy(((f[None, :] > (L - F)[:, None])
+                              & (f[None, :] <= L[:, None])).astype(
+        np.float32)).to(dev)
+    fns = {"kernel": lambda: call("kernel", emit_),
+           "plain": lambda: call("plain", emit_plain_),
+           "library": lambda: masks @ state["panes"]}
+    with ieee_fp32_matmul():
+        if not torch.equal(fns["library"](), ref["results"][:8]):
+            raise AssertionError("emit timing: the library yardstick "
+                                 "disagrees")
+        times = {}
+        for label in ("plain", "kernel", "library", "kernel", "plain"):
+            times.setdefault(label, []).append(cuda_ms(fns[label],
+                                                       iters=200))
+    read_rows = int(masks.amax(0).sum())
+    bytes_moved = (read_rows + EB + 8) * K * 4 + R * 4 + EB * 5
+    res = {"ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+           "library_ms": min(times["library"]),
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes": bytes_moved, "events_ms": times}
+    log(f"emit timing at K={K} R={R} EB={EB} (8 windows, {read_rows} pane "
+        f"rows): {json.dumps(res)}")
+    return res, fns
+
+
+def profile_emit(fns: dict, entry: dict) -> None:
+    """Device time alone (profiler) of emit's three timed calls: the
+    kernel's and the plain version's include their two small copies."""
+    with ieee_fp32_matmul():
+        dev_only = {label: device_ms(fn) for label, fn in fns.items()}
+    entry.update({"device_ms": dev_only["kernel"],
+                  "plain_device_ms": dev_only["plain"],
+                  "library_device_ms": dev_only["library"]})
+    log(f"emit device time (profiler) ms {json.dumps(dev_only)}")
+
+
 def q5_wall_ab(dev, n_steps: int = 300) -> dict:
     """Q5 wall ms a step with the fused accumulate and with the plain one
     on the card, in turns (plain, fused, fused, plain), before any
@@ -3925,14 +4034,15 @@ def q5_wall_ab(dev, n_steps: int = 300) -> dict:
 
 
 def new_kernel_resources(dev) -> dict:
-    """Registers, spills and shared memory (ptxas) of the fused accumulate
-    and of route_pack, and route_pack's cluster at the path's plan: blocks,
+    """Registers, spills and shared memory (ptxas) of the fused accumulate,
+    of emit and of route_pack, and route_pack's cluster at the path's plan: blocks,
     threads, claims a block and clusters the card holds at once."""
     plan = pack_plan(B // RANKS, RANKS, max(8, int(B // RANKS / RANKS * 2.0)))
     blocks, threads, clusters = pack_cluster(plan.cells_per_block,
                                              dev.index or 0)
     res = {"accumulate_ptxas": ptxas_report("window_agg",
                                             "accumulate_kernel"),
+           "emit_ptxas": ptxas_report("window_agg", "emit_kernel"),
            "route_pack_ptxas": ptxas_report("route", "route_pack_kernel"),
            "route_pack_cluster": {
                "blocks": blocks, "threads_a_block": threads,
@@ -4378,12 +4488,17 @@ def main() -> int:
     op_timing, op_calls = time_window_agg(dev)
     window.update(op_timing)
     acc.update(time_accumulate(dev))
+    emit = {"name": "emit"}
+    emit_timing, emit_calls = time_emit(dev)
+    emit.update(emit_timing)
     resources = new_kernel_resources(dev)
     acc["resources"] = resources["accumulate_ptxas"]
+    emit["resources"] = resources["emit_ptxas"]
     routes[2]["resources"] = {k: resources[k] for k in (
         "route_pack_ptxas", "route_pack_cluster")}
     profile_route(dev, routes)
     profile_window_agg(op_calls, window)
+    profile_emit(emit_calls, emit)
     profile_decode_attention(dev, attn)
     prof = profile_main_path(dev, ab["fused_ms"])
     prof_plain = profile_main_path(dev, ab["plain_ms"], plain=True)
@@ -4402,7 +4517,7 @@ def main() -> int:
                       "engine": engine, "faults": faults, "lm": lms,
                       "train": trains, "mesh": meshes,
                       "total_s": total}))
-    print(json.dumps({"kernels": [window, acc, attn, *routes]}))
+    print(json.dumps({"kernels": [window, acc, emit, attn, *routes]}))
     print(smi)
     # the run uses one card, whatever the host holds
     print(json.dumps({"ok": True, "device": {

@@ -59,9 +59,9 @@ Where the port differs from the reference in mechanism (not in result):
   ``torch.cuda.Event`` on the current stream, stored with its pending
   output; ``_is_ready`` queries it, a blocking harvest synchronises it.
   On the CPU a step is complete when it returns (no event).
-* **What the tasklet still waits for.** The port's ``emit`` drives the
-  emission loop from the host and reads the device ``rounds + 1`` times
-  a step (``streaming/window.py``), so ``_submit`` waits for those reads
+* **What the tasklet still waits for.** The port's ``emit`` reads the
+  device once a step on a card (the emit kernel's status: rows and
+  rounds; ``streaming/window.py``), so ``_submit`` waits for that read
   inside ``executor.step``; only the harvest is free of device waits.
 * **Conversion reads only the valid rows.** A step's valid rows are
   exactly the prefix ``[0, out["rows"])`` of its output buffer, and only

@@ -12,14 +12,20 @@ the device tier's stage-1 ``accumulate`` that runs on it.
   hand-written ``accumulate_kernel`` (lateness, ring conflicts, the pane
   scatter-add, the ``slot_frame`` update, the drop counters and the
   watermark);
-* :func:`window_agg_plain_into_` and :func:`accumulate_plain_` are their
-  plain PyTorch versions.
+* :func:`emit_` is the reference's ``streaming/window.py::emit`` on a
+  window state, in place: on a card ONE launch of the hand-written
+  ``emit_kernel`` (every emission round of the step: the emission front,
+  the fast-forward, the windows' sums, the evictions and the output
+  buffer), then ONE read of its status by the host;
+* :func:`window_agg_plain_into_`, :func:`accumulate_plain_` and
+  :func:`emit_plain_` are their plain PyTorch versions.
 
 Dispatch is on the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the hand-written Hopper kernel
 (``csrc/window_agg.cu``) or raise.  There is no fallback from one to the
-other.  ``window_agg.launches`` and ``accumulate_.launches`` count each
-wrapper's kernel launches (never plain runs).
+other.  ``window_agg.launches``, ``accumulate_.launches`` and
+``emit_.launches`` count each wrapper's kernel launches (never plain
+runs).
 """
 
 from __future__ import annotations
@@ -28,8 +34,11 @@ import ctypes
 import functools
 import threading
 
+import numpy as np
 import torch
 
+from .. import tracing
+from ..devices import ieee_fp32_matmul
 from . import _build
 
 _VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -86,6 +95,10 @@ def _lib() -> ctypes.CDLL:
     lib.window_agg_launch.restype = ctypes.c_int
     lib.accumulate_launch.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
     lib.accumulate_launch.restype = ctypes.c_int
+    lib.emit_launch.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.emit_launch.restype = ctypes.c_int
+    lib.emit_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.emit_shared_bytes.restype = ctypes.c_longlong
     lib.window_agg_error_string.argtypes = [ctypes.c_int]
     lib.window_agg_error_string.restype = ctypes.c_char_p
     return lib
@@ -330,3 +343,188 @@ def accumulate_(state, ts, key, value, valid, *, slide_ms: int,
 
 
 accumulate_.launches = 0
+
+
+# -- emit ----------------------------------------------------------------------
+
+#: sentinel for "no frame / uninitialised emission front" (int32-safe)
+_FAR = 2**30
+
+
+def emit_plain_(state, *, slide_ms: int, frames_per_window: int,
+                max_windows_per_step: int, buffer_rows: int):
+    """Plain version of :func:`emit_`: the reference's emission
+    ``lax.while_loop`` (``window.py:165-255``) driven from the host, in
+    place.  Each round ends in ONE device-to-host read that brings back the
+    number of windows it emitted, the loop condition and the evicted slots,
+    and one more read decides whether the first round runs: ``rounds + 1``
+    host syncs, each in a ``stream.emit.read`` span of the active tracer.
+    The loop runs until the front passes the watermark or the output buffer
+    fills, which can be up to ``buffer_rows - max_windows_per_step + 1``
+    rounds."""
+    tracer = tracing.active()
+    panes, slot_frame = state["panes"], state["slot_frame"]
+    K = panes.shape[1]
+    F, slide = frames_per_window, slide_ms
+    E, EB = max_windows_per_step, buffer_rows
+
+    wm = state["watermark"]
+    dev = panes.device
+    # first window end strictly beyond the watermark: reaching it means
+    # emission is fully caught up
+    caught = (wm // slide + 1) * slide
+
+    def fast_forward(ne):
+        """Smallest window end >= ne containing a live frame; if none is
+        at or below the watermark, jump to ``caught`` (every window in
+        between is empty — skipping it emits exactly nothing)."""
+        live = slot_frame >= 0
+        # frame f participates in windows ending (f+1)*slide..(f+F)*slide
+        cand = torch.where(live & ((slot_frame + F) * slide >= ne),
+                           torch.maximum(ne, (slot_frame + 1) * slide), _FAR)
+        nxt = cand.min()
+        return torch.where(ne >= _FAR, ne,
+                           torch.where(nxt <= wm, nxt,
+                                       torch.maximum(ne, caught)))
+
+    # initialise next_emit from the first frame present
+    first_frame = torch.where(slot_frame >= 0, slot_frame, _FAR).min()
+    ne = torch.where(state["next_emit"] < 0,
+                     torch.where(first_frame < _FAR, (first_frame + 1) * slide,
+                                 _FAR),
+                     state["next_emit"])
+    ne = fast_forward(ne)
+
+    res = torch.zeros((EB, K), dtype=panes.dtype, device=dev)
+    ends = torch.zeros((EB,), dtype=torch.int32, device=dev)
+    val = torch.zeros((EB,), dtype=torch.bool, device=dev)
+    offsets = torch.arange(E, dtype=torch.int32, device=dev) * slide
+
+    count = rounds = 0
+    start = (ne <= wm) & (ne < _FAR)
+    with tracer.span("stream.emit.read"):
+        go = bool(start)                            # host sync 1
+    with ieee_fp32_matmul():
+        while go:
+            # E candidate windows in ONE matmul: masks (E, R) @ panes (R, K)
+            w_ends = ne + offsets
+            ready = w_ends <= wm                                    # (E,)
+            L = w_ends // slide - 1                                 # (E,)
+            ring_f = slot_frame                                     # (R,)
+            in_win = ((ring_f[None, :] > (L - F)[:, None])
+                      & (ring_f[None, :] <= L[:, None])
+                      & (ring_f[None, :] >= 0) & ready[:, None])
+            masks = in_win.to(panes.dtype)                          # (E, R)
+            results = masks @ panes                                 # (E, K)
+            # evict every frame retired by an emitted window (single pass)
+            evict = ((ring_f[None, :] == (L - F + 1)[:, None])
+                     & ready[:, None]).any(dim=0) & (ring_f >= 0)
+            slot_frame.masked_fill_(evict, -1)
+            n_emitted = ready.sum(dtype=torch.int32)
+            # the ready rows are a prefix of the E candidates (w_ends are
+            # ascending), so advancing the cursor by n_emitted lets the next
+            # round overwrite only the not-ready tail
+            res[count:count + E] = results
+            ends[count:count + E] = w_ends
+            val[count:count + E] = ready
+            ne = fast_forward(ne + n_emitted * slide)
+            more = (ne <= wm) & (ne < _FAR)
+            # the round's one host sync: emitted count, loop condition and
+            # evicted slots (window.py:249's while_loop, driven from here)
+            host = torch.cat([torch.stack([n_emitted, more.to(torch.int32)]),
+                              evict.to(torch.int32)])
+            with tracer.span("stream.emit.read"):
+                host = host.cpu().numpy()
+            # zero only the evicted rows: the reference rewrites the whole
+            # (R, K) matrix (window.py:236); in place, the result is equal
+            for r in np.flatnonzero(host[2:]).tolist():
+                panes[r].zero_()
+            count += int(host[0])
+            rounds += 1
+            go = bool(host[1]) and count + E <= EB
+
+    state["next_emit"].copy_(torch.where(ne < _FAR, ne, state["next_emit"]))
+    return state, {"results": res, "window_ends": ends, "valid": val,
+                   "rows": count, "rounds": rounds, "host_syncs": rounds + 1}
+
+
+#: the most shared memory a block may ask for on Hopper (227 KB)
+_SHARED_MAX = 232_448
+
+_EMIT_WORKSPACES: dict = {}
+
+
+def _emit_workspace(device: torch.device, stream: int) -> torch.Tensor:
+    """The emit workspace of (device, stream): int32 ``[ticket, rows,
+    rounds, 0]``.  The kernel's last block writes the status and resets the
+    ticket, so launches on one stream reuse it in order."""
+    ws = _EMIT_WORKSPACES.get((device, stream))
+    if ws is None:
+        ws = torch.zeros(4, dtype=torch.int32, device=device)
+        _EMIT_WORKSPACES[(device, stream)] = ws
+    return ws
+
+
+def emit_(state, *, slide_ms: int, frames_per_window: int,
+          max_windows_per_step: int, buffer_rows: int):
+    """Jet stage 2 on ``state`` (as :func:`accumulate_` takes it), in
+    place: emit every window whose end the watermark has reached, in rounds
+    of ``max_windows_per_step`` windows, until the front passes the
+    watermark or the next round would not fit the ``buffer_rows`` output
+    rows; evict the frame each emitted window retires.
+
+    Returns ``(state, out)``: ``results`` ``(buffer_rows, K)``,
+    ``window_ends`` and ``valid`` ``(buffer_rows,)`` as the reference
+    writes them (valid rows are exactly the prefix ``[0, rows)``; results
+    are 0 past it), and three host ints, ``rows``, ``rounds`` and
+    ``host_syncs``.  On a card one launch of ``emit_kernel`` runs every
+    round and the host reads its two-int status once (a ``stream.emit.read``
+    span of the active tracer): ``host_syncs`` is 1.  Its sums are IEEE
+    float32, compensated (``csrc/window_agg.cu``): counts are exact, as in
+    the plain version."""
+    kw = dict(slide_ms=slide_ms, frames_per_window=frames_per_window,
+              max_windows_per_step=max_windows_per_step,
+              buffer_rows=buffer_rows)
+    panes = state["panes"]
+    dev = panes.device
+    if dev.type == "cpu":
+        return emit_plain_(state, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"emit runs on cpu or cuda, not {dev}")
+    _check_state(state)
+    R, K = panes.shape
+    E, EB = max_windows_per_step, buffer_rows
+    if slide_ms <= 0 or frames_per_window <= 0 or E <= 0 or EB < E:
+        raise ValueError(f"emit needs slide_ms, frames_per_window and "
+                         f"max_windows_per_step > 0 and buffer_rows >= "
+                         f"max_windows_per_step, got {kw}")
+    if EB * K >= 2**31:
+        raise ValueError(f"({EB}, {K}) results: flat indices must fit int32")
+    smem = _lib().emit_shared_bytes(R, EB, E)
+    if smem > _SHARED_MAX:
+        raise ValueError(f"a ring of {R} slots and {EB // E} rounds need "
+                         f"{smem} bytes of shared memory a block, more than "
+                         f"the card's {_SHARED_MAX}")
+    res = torch.empty((EB, K), dtype=torch.float32, device=dev)
+    ends = torch.empty((EB,), dtype=torch.int32, device=dev)
+    val = torch.empty((EB,), dtype=torch.bool, device=dev)
+    index = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    ws = _emit_workspace(dev, stream)
+    args = getattr(_ARGS, "emit", None)
+    if args is None:                    # one packed array a thread
+        args = _ARGS.emit = (ctypes.c_longlong * 16)()
+    args[:] = (panes.data_ptr(), state["slot_frame"].data_ptr(),
+               state["watermark"].data_ptr(), state["next_emit"].data_ptr(),
+               res.data_ptr(), ends.data_ptr(), val.data_ptr(),
+               ws.data_ptr(), K, R, frames_per_window, slide_ms, E, EB,
+               index, stream)
+    _raise_on(_lib().emit_launch(args), "emit")
+    emit_.launches += 1
+    with tracing.active().span("stream.emit.read"):
+        rows, rounds = ws[1:3].tolist()             # the one host sync
+    return state, {"results": res, "window_ends": ends, "valid": val,
+                   "rows": rows, "rounds": rounds, "host_syncs": 1}
+
+
+emit_.launches = 0

@@ -12,8 +12,10 @@ aggregates live in an ``(R, K)`` pane matrix:
   scatter-add, the ``slot_frame`` update, the drop counters and the
   watermark), on CPU tensors its plain version;
 * **emit** (Jet stage 2) emits every window whose end the watermark has
-  reached, ``max_windows_per_step`` windows per ``(E, R) @ (R, K)`` round,
-  and evicts the frame each emitted window retires.
+  reached, ``max_windows_per_step`` windows a round, and evicts the frame
+  each emitted window retires: on a card ONE launch of the hand-written
+  ``emit`` kernel runs every round of the step, on CPU tensors its plain
+  version (``kernels/window_agg.py``).
 
 Where the port differs from the reference in mechanism (not in result):
 
@@ -23,13 +25,16 @@ Where the port differs from the reference in mechanism (not in result):
   eviction zeroes only the evicted rows instead of rewriting the whole
   matrix.  A caller that keeps a state across a step clones it first
   (``StreamExecutor.snapshot`` does).
-* The emission ``lax.while_loop`` is driven from the host: each round ends
-  in ONE device-to-host read that brings back the number of windows it
-  emitted, the loop condition and the evicted slots, and one more read
-  decides whether the first round runs.  A step costs ``rounds + 1`` host
-  syncs, reported in its outputs.  The loop runs until the front passes the
-  watermark or the output buffer fills, which can be up to ``EB - E + 1``
-  rounds; it never predicates a fixed number of rounds.
+* The emission ``lax.while_loop`` runs on the card inside one kernel
+  launch: the front, the fast-forward over empty windows and the rounds'
+  stopping rule (the front passes the watermark or the next round would
+  not fit the output buffer) are computed there from ``slot_frame`` and
+  the watermark, and the host reads the kernel's two-int status (rows
+  emitted, rounds run) once a step.  A step costs one host sync on a card;
+  the plain version drives the loop from the host, with a read before the
+  first round and one after each (``rounds + 1``).  Both report theirs in
+  the outputs.  The windows' sums are IEEE float32 on both (compensated
+  in the kernel, one cuBLAS product a round in the plain version).
 * The pane scatter keeps the reference's flat-index semantics
   (``window.py:140-143``): an event lands at ``slot * K + key`` of the
   flattened panes, so a key bucket outside ``[0, K)`` lands in a
@@ -49,15 +54,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 
 from .. import tracing
-from ..kernels.window_agg import accumulate_
-from ..devices import ieee_fp32_matmul
-
-#: sentinel for "no frame / uninitialised emission front" (int32-safe)
-_FAR = 2**30
+from ..kernels.window_agg import accumulate_, emit_
 
 @dataclasses.dataclass(frozen=True)
 class VectorWindowSpec:
@@ -155,101 +155,16 @@ def emit(spec: VectorWindowSpec, state: Dict
     Returns ``(state, out)``.  ``out`` holds the reference's outputs
     (``results`` ``(EB, K)``, ``window_ends`` ``(EB,)``, ``valid``
     ``(EB,)``) and three host ints: ``rows`` (the valid rows are exactly
-    the prefix ``[0, rows)``), ``rounds`` and ``host_syncs``.  The active
-    tracer (``tracing.active()``) gets a ``stream.emit`` span around the
-    call and a ``stream.emit.read`` span around each of the host syncs.
+    the prefix ``[0, rows)``), ``rounds`` and ``host_syncs`` (1 on a
+    card).  The active tracer (``tracing.active()``) gets a ``stream.emit``
+    span around the call and a ``stream.emit.read`` span around each of the
+    host syncs.
     """
-    tracer = tracing.active()
-    with tracer.span("stream.emit"):
-        return _emit(spec, state, tracer)
-
-
-def _emit(spec: VectorWindowSpec, state: Dict, tracer
-          ) -> Tuple[Dict, Dict[str, object]]:
-    K, R, F = spec.n_key_buckets, spec.ring_len, spec.frames_per_window
-    slide = spec.slide_ms
-    E = spec.max_windows_per_step
-    EB = spec.emit_buffer_rows
-
-    wm = state["watermark"]
-    panes, slot_frame = state["panes"], state["slot_frame"]
-    dev = panes.device
-    # first window end strictly beyond the watermark: reaching it means
-    # emission is fully caught up
-    caught = (wm // slide + 1) * slide
-
-    def fast_forward(ne):
-        """Smallest window end >= ne containing a live frame; if none is
-        at or below the watermark, jump to ``caught`` (every window in
-        between is empty — skipping it emits exactly nothing)."""
-        live = slot_frame >= 0
-        # frame f participates in windows ending (f+1)*slide..(f+F)*slide
-        cand = torch.where(live & ((slot_frame + F) * slide >= ne),
-                           torch.maximum(ne, (slot_frame + 1) * slide), _FAR)
-        nxt = cand.min()
-        return torch.where(ne >= _FAR, ne,
-                           torch.where(nxt <= wm, nxt,
-                                       torch.maximum(ne, caught)))
-
-    # initialise next_emit from the first frame present
-    first_frame = torch.where(slot_frame >= 0, slot_frame, _FAR).min()
-    ne = torch.where(state["next_emit"] < 0,
-                     torch.where(first_frame < _FAR, (first_frame + 1) * slide,
-                                 _FAR),
-                     state["next_emit"])
-    ne = fast_forward(ne)
-
-    res = torch.zeros((EB, K), dtype=panes.dtype, device=dev)
-    ends = torch.zeros((EB,), dtype=torch.int32, device=dev)
-    val = torch.zeros((EB,), dtype=torch.bool, device=dev)
-    offsets = torch.arange(E, dtype=torch.int32, device=dev) * slide
-
-    count = rounds = 0
-    start = (ne <= wm) & (ne < _FAR)
-    with tracer.span("stream.emit.read"):
-        go = bool(start)                            # host sync 1
-    with ieee_fp32_matmul():
-        while go:
-            # E candidate windows in ONE matmul: masks (E, R) @ panes (R, K)
-            w_ends = ne + offsets
-            ready = w_ends <= wm                                    # (E,)
-            L = w_ends // slide - 1                                 # (E,)
-            ring_f = slot_frame                                     # (R,)
-            in_win = ((ring_f[None, :] > (L - F)[:, None])
-                      & (ring_f[None, :] <= L[:, None])
-                      & (ring_f[None, :] >= 0) & ready[:, None])
-            masks = in_win.to(panes.dtype)                          # (E, R)
-            results = masks @ panes                                 # (E, K)
-            # evict every frame retired by an emitted window (single pass)
-            evict = ((ring_f[None, :] == (L - F + 1)[:, None])
-                     & ready[:, None]).any(dim=0) & (ring_f >= 0)
-            slot_frame.masked_fill_(evict, -1)
-            n_emitted = ready.sum(dtype=torch.int32)
-            # the ready rows are a prefix of the E candidates (w_ends are
-            # ascending), so advancing the cursor by n_emitted lets the next
-            # round overwrite only the not-ready tail
-            res[count:count + E] = results
-            ends[count:count + E] = w_ends
-            val[count:count + E] = ready
-            ne = fast_forward(ne + n_emitted * slide)
-            more = (ne <= wm) & (ne < _FAR)
-            # the round's one host sync: emitted count, loop condition and
-            # evicted slots (window.py:249's while_loop, driven from here)
-            host = torch.cat([torch.stack([n_emitted, more.to(torch.int32)]),
-                              evict.to(torch.int32)])
-            with tracer.span("stream.emit.read"):
-                host = host.cpu().numpy()
-            # zero only the evicted rows: the reference rewrites the whole
-            # (R, K) matrix (window.py:236); in place, the result is equal
-            for r in np.flatnonzero(host[2:]).tolist():
-                panes[r].zero_()
-            count += int(host[0])
-            rounds += 1
-            go = bool(host[1]) and count + E <= EB
-
-    state["next_emit"].copy_(torch.where(ne < _FAR, ne, state["next_emit"]))
-    return state, {"results": res, "window_ends": ends, "valid": val,
-                   "rows": count, "rounds": rounds, "host_syncs": rounds + 1}
+    with tracing.active().span("stream.emit"):
+        return emit_(state, slide_ms=spec.slide_ms,
+                     frames_per_window=spec.frames_per_window,
+                     max_windows_per_step=spec.max_windows_per_step,
+                     buffer_rows=spec.emit_buffer_rows)
 
 
 def step(spec: VectorWindowSpec, state: Dict, batch: Dict

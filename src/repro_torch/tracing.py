@@ -36,10 +36,12 @@ The executor's spans:
                         plan's ``route_pack`` and all-to-all, then the
                         watermark's and counters' reductions; the reduce
                         plan's ``psum_scatter`` and reductions
-``stream.emit``         emission, the whole call (its rounds, the zeroing
-                        of the result buffer, the evictions)
+``stream.emit``         emission, the whole call (on a card the emit
+                        kernel's launch and its status read; on the CPU
+                        the plain version's rounds)
 ``stream.emit.read``    one blocking read of the card by emission; there
-                        are as many as the executor's ``host_syncs``
+                        are as many as the executor's ``host_syncs`` (one
+                        a step on a card)
 ``stream.collect``      ``run_stream``'s cut and copy, on the card, of a
                         step's valid result rows
 ``stream.harvest``      ``run_stream``'s copy of the collected rows to the

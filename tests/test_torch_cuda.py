@@ -10,14 +10,22 @@ Tolerances, ``window_agg`` and ``accumulate``: counts exactly (integer
 sums below 2^24 are exact in f32 in any order); f32 sums ``rtol=1e-6,
 atol=1e-5`` (atomics add in no fixed order); bf16 and f16 values likewise,
 since kernel and plain version both widen the same values to f32 before
-adding.  ``accumulate``'s frames, counters and watermark: exactly.  ``decode_attention``:
-``2e-5`` in every type, as ``tests/test_kernels.py`` holds the Pallas
+adding.  ``accumulate``'s frames, counters and watermark: exactly.
+``emit``: counts exactly; f32 sums ``rtol=1e-6, atol=1e-5``, against the
+plain version where a window sums a few frames, and against the float64
+sums of the same windows at Q5's 1 000 frames a window (the kernel's sums
+are compensated; any two plain float32 orders of 1 000 such terms, cuBLAS's
+among them, differ by up to about 1e-4); rows, rounds, window ends, valid
+flags, slot frames, the emission front and the panes exactly.
+``decode_attention``: ``2e-5`` in every type, as ``tests/test_kernels.py`` holds the Pallas
 kernel to its oracle in f32 (the kernel sums in another order and scales q
 where the plain version scales the scores); both sides widen the same
 bf16 or f16 inputs to f32 and sum in f32, so a half type earns no wider
 tolerance.  ``route_counts``, ``route_offsets`` and ``route_pack``:
 integers, exactly.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -33,7 +41,8 @@ from repro_torch.kernels.route import (  # noqa: E402
     pack_cluster, pack_plan, route_counts, route_counts_plain, route_offsets,
     route_offsets_plain, route_pack, route_pack_plain)
 from repro_torch.kernels.window_agg import (  # noqa: E402
-    accumulate_, accumulate_plain_, window_agg, window_agg_plain_into_)
+    accumulate_, accumulate_plain_, emit_, emit_plain_, window_agg,
+    window_agg_plain_into_)
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import BatchedLMServer  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -123,8 +132,8 @@ def test_kernel_rejects_non_contiguous(cuda):
 
 def test_executor_on_cuda_matches_cpu(cuda):
     """One stretch of steps through both devices; the CUDA executor runs
-    the accumulate kernel on every step.  Then the route plan's accumulate
-    inputs through the kernel."""
+    the accumulate and emit kernels on every step, one host read a step.
+    Then the route plan's accumulate inputs through the kernel."""
     spec = VectorWindowSpec(size_ms=100, slide_ms=10, n_key_buckets=64,
                             max_windows_per_step=4, ring_margin=8)
     cfg = StreamJobConfig(window=spec, batch_size=128)
@@ -139,11 +148,12 @@ def test_executor_on_cuda_matches_cpu(cuda):
                 "valid": rng.rand(B) > 0.1}
 
     batches = [gen(i * 128, 128) for i in range(60)]
-    before = (window_agg.launches, accumulate_.launches)
+    before = (window_agg.launches, accumulate_.launches, emit_.launches)
     gpu = StreamExecutor(cfg)
     g_state, g_res = gpu.run_stream(lambda s, B: batches[s // B], 60)
-    assert (window_agg.launches, accumulate_.launches) == (before[0],
-                                                           before[1] + 60)
+    assert (window_agg.launches, accumulate_.launches,
+            emit_.launches) == (before[0], before[1] + 60, before[2] + 60)
+    assert gpu.host_syncs == 60
     c_state, c_res = StreamExecutor(cfg, device="cpu").run_stream(
         lambda s, B: batches[s // B], 60)
     for k in c_state:
@@ -368,6 +378,180 @@ def test_accumulate_kernel_rejects_what_it_cannot_read(cuda):
         accumulate_(state, ts[:0], key[:0], value[:0], valid[:0],
                     **_acc_kw(spec))
     assert accumulate_.launches == before
+
+
+# -- emit ---------------------------------------------------------------------
+
+def _emit_kw(spec):
+    return dict(slide_ms=spec.slide_ms,
+                frames_per_window=spec.frames_per_window,
+                max_windows_per_step=spec.max_windows_per_step,
+                buffer_rows=spec.emit_buffer_rows)
+
+
+def _emit_case(name, device):
+    """``(spec, state, updates, sums)``: ``state`` on ``device``; each
+    update moves it on (frames added, the watermark raised, or a batch
+    accumulated) before one emission; ``sums``: "counts" where every value
+    is a count, else "valued" (random float sums)."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    valued = name.endswith("valued")
+    spec = {"k4096": dataclasses.replace(Q5, n_key_buckets=4096),
+            "fast_forward_gap": VectorWindowSpec(
+                size_ms=40, slide_ms=10, n_key_buckets=64,
+                max_windows_per_step=2, ring_margin=4),
+            "multi_round_full": VectorWindowSpec(
+                size_ms=40, slide_ms=10, n_key_buckets=16,
+                max_windows_per_step=1, ring_margin=20, emit_rounds=2),
+            "nothing_due": SMALL, "small_valued": SMALL,
+            "wm_lag": VectorWindowSpec(size_ms=80, slide_ms=10,
+                                       n_key_buckets=512, ring_margin=8,
+                                       wm_lag=25)}.get(name, Q5)
+    R, K, slide = spec.ring_len, spec.n_key_buckets, spec.slide_ms
+    state = window_state_init(spec, device=device)
+
+    def pane_rows(n):
+        rows = rng.randn(n, K) if valued else rng.randint(0, 4, (n, K))
+        return torch.from_numpy(rows.astype(np.float32)).to(device)
+
+    def frames(fs, wm=None, next_emit=None):
+        def update(st):
+            fs_ = np.asarray(fs)
+            slots = torch.from_numpy(fs_ % R).long().to(device)
+            st["slot_frame"][slots] = torch.from_numpy(
+                fs_.astype(np.int32)).to(device)
+            st["panes"][slots] = pane_rows(len(fs_))
+            if wm is not None:
+                st["watermark"].fill_(wm)
+            if next_emit is not None:
+                st["next_emit"].fill_(next_emit)
+        return update
+
+    def batch(step):
+        # 10 ms of event time a step, 3 % of it up to 60 ms late
+        n = 2000
+        ts = step * slide + rng.randint(0, slide, n)
+        ts[rng.rand(n) < 0.03] -= rng.randint(0, 60)
+        rows = (ts.astype(np.int32), rng.randint(0, K, n).astype(np.int32),
+                np.ones(n, np.float32), rng.rand(n) < 0.95)
+
+        def update(st):
+            t = [torch.from_numpy(a).to(device) for a in rows]
+            accumulate_(st, *t, **_acc_kw(spec))
+        return update
+
+    if name in ("q5_steps", "q5_valued", "k4096"):
+        # catchup8: the ring full (frames 0..1 007), then 8 frames and 8
+        # windows a step; each window retires its first frame
+        F = spec.frames_per_window
+        updates = [frames(range(F + 8), wm=(F + 8) * slide - 1,
+                          next_emit=F * slide)]
+        for i in range(1, 2 if valued else 4):
+            lo = F + 8 * i
+            updates.append(frames(range(lo, lo + 8),
+                                  wm=(lo + 8) * slide - 1))
+    elif name == "q5_first_step":
+        # next_emit -1: the front starts at the first frame's window, 7 due
+        updates = [frames(range(8), wm=79), frames(range(8, 16), wm=159)]
+    elif name == "small_valued":
+        updates = [frames(range(12), wm=95), frames(range(12, 20), wm=175)]
+    elif name == "nothing_due":
+        # an empty ring, then frames whose first window ends past the
+        # watermark
+        updates = [lambda st: None, frames([5, 6, 7], wm=55),
+                   frames([8], wm=59)]
+    elif name == "fast_forward_gap":
+        # frames 2..4, then a gap to 40..41: the front jumps from window end
+        # 80 to 410 inside the step; 11 windows over 8 rows take two steps
+        updates = [frames([2, 3, 4, 40, 41], wm=2000), lambda st: None,
+                   lambda st: None]
+    elif name == "multi_round_full":
+        # test_emit_output_buffer_bounded_matches_jax: 2 rounds of 1 window
+        # fill the buffer; the rest waits for later steps
+        updates = [frames(range(20), wm=1000)] + [lambda st: None] * 4
+    elif name == "wm_lag":
+        updates = [batch(i) for i in range(40)]
+    return spec, state, updates, "valued" if valued else "counts"
+
+
+EMIT_CASES = ["q5_steps", "q5_first_step", "nothing_due", "fast_forward_gap",
+              "multi_round_full", "wm_lag", "small_valued", "q5_valued",
+              "k4096"]
+
+
+def _window_sums64(spec, state, ends):
+    """The float64 sums of the windows ending at ``ends`` over ``state``'s
+    panes, every live frame of each window."""
+    F, slide = spec.frames_per_window, spec.slide_ms
+    frame = state["slot_frame"].long()
+    out = []
+    for w in ends.tolist():
+        L = w // slide - 1
+        live = (frame >= 0) & (frame > L - F) & (frame <= L)
+        out.append(state["panes"][live].double().sum(0))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("name", EMIT_CASES)
+def test_emit_kernel_matches_plain(cuda, name):
+    """One launch and one host read a call, and everything equal to the
+    plain version's run on the card from the same state: the outputs,
+    ``rows`` and ``rounds``, the state after the call; results and valid
+    flags past ``rows`` all zero."""
+    spec, state, updates, sums = _emit_case(name, cuda)
+    kw = _emit_kw(spec)
+    emitted = rounds = 0
+    for update in updates:
+        update(state)
+        want = {k: v.clone() for k, v in state.items()}
+        before_state = {k: v.clone() for k, v in state.items()}
+        before = emit_.launches
+        state, out = emit_(state, **kw)
+        torch.cuda.synchronize()
+        assert emit_.launches == before + 1 and out["host_syncs"] == 1
+        want, ref = emit_plain_(want, **kw)
+        assert (out["rows"], out["rounds"]) == (ref["rows"], ref["rounds"])
+        assert ref["host_syncs"] == ref["rounds"] + 1
+        for k in ("window_ends", "valid"):
+            assert torch.equal(out[k], ref[k]), (name, k)
+        rows = out["rows"]
+        if sums == "counts":
+            assert torch.equal(out["results"], ref["results"]), name
+        elif spec.frames_per_window < 100:
+            torch.testing.assert_close(out["results"], ref["results"],
+                                       **F32_TOL)
+        else:
+            torch.testing.assert_close(
+                out["results"][:rows].double(),
+                _window_sums64(spec, before_state, out["window_ends"][:rows]),
+                **F32_TOL)
+        assert not out["results"][rows:].any()
+        assert not out["valid"][rows:].any() and out["valid"][:rows].all()
+        for k in want:
+            assert torch.equal(state[k], want[k]), (name, k)
+        emitted += rows
+        rounds += out["rounds"]
+    if name == "nothing_due":
+        assert emitted == 0
+    else:
+        assert emitted > 0
+    if name in ("multi_round_full", "fast_forward_gap"):
+        assert rounds > len(updates)            # several rounds a step
+
+
+def test_emit_kernel_rejects_what_it_cannot_read(cuda):
+    spec, state, _, _ = _emit_case("nothing_due", cuda)
+    before = emit_.launches
+    with pytest.raises(ValueError, match="max_windows_per_step"):
+        emit_(state, **dict(_emit_kw(spec), buffer_rows=0))
+    with pytest.raises(ValueError, match="shared memory"):
+        emit_(window_state_init(dataclasses.replace(
+            spec, size_ms=spec.slide_ms * 20_000), device=cuda),
+            **_emit_kw(spec))
+    with pytest.raises(TypeError, match="int32"):
+        emit_(dict(state, slot_frame=state["slot_frame"].long()),
+              **_emit_kw(spec))
+    assert emit_.launches == before
 
 
 # -- decode_attention ---------------------------------------------------------

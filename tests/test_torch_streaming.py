@@ -29,9 +29,10 @@ from repro_torch.nexmark import (  # noqa: E402
 from repro_torch.streaming.state import (  # noqa: E402
     state_from_numpy, state_to_numpy)
 from repro.streaming.window import accumulate as jax_accumulate  # noqa: E402
-from repro_torch.kernels.window_agg import window_agg  # noqa: E402
-from repro_torch.streaming.window import (  # noqa: E402
-    accumulate, ieee_fp32_matmul)
+from repro_torch.kernels.window_agg import (  # noqa: E402
+    emit_, emit_plain_, window_agg)
+from repro_torch.devices import ieee_fp32_matmul  # noqa: E402
+from repro_torch.streaming.window import accumulate  # noqa: E402
 
 F32_TOL = dict(rtol=1e-6, atol=1e-5)
 OUT_KEYS = ("results", "window_ends", "valid")
@@ -253,6 +254,43 @@ def test_emit_output_buffer_bounded_matches_jax(valued):
         assert got == _oracle(ts, np.zeros(20, np.int64), np.ones(20), 40, 10)
     assert tex.emit_rounds > 0
     assert tex.host_syncs >= tex.emit_rounds + len(batches)
+
+
+def test_emit_dispatches_to_plain_on_cpu():
+    """``streaming.window.emit`` and ``emit_`` on CPU tensors are the plain
+    version: the same outputs and state, ``rounds + 1`` host syncs, no
+    launch.  A full buffer stops the rounds (2 of 1 window here)."""
+    spec = tst.VectorWindowSpec(size_ms=40, slide_ms=10, n_key_buckets=16,
+                                max_windows_per_step=1, ring_margin=20,
+                                emit_rounds=2)
+    rng = np.random.RandomState(5)
+    R, K = spec.ring_len, spec.n_key_buckets
+    slot_frame = np.full(R, -1, np.int32)
+    slot_frame[:20] = np.arange(20)
+    state = {"panes": rng.randint(0, 4, (R, K)).astype(np.float32),
+             "slot_frame": slot_frame, "watermark": np.int32(1000),
+             "next_emit": np.int32(-1), "dropped_late": np.int32(0),
+             "dropped_conflict": np.int32(0)}
+    states = [{k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+              for _ in range(3)]
+    kw = dict(slide_ms=spec.slide_ms,
+              frames_per_window=spec.frames_per_window,
+              max_windows_per_step=spec.max_windows_per_step,
+              buffer_rows=spec.emit_buffer_rows)
+    before = emit_.launches
+    for _ in range(3):
+        outs = [tst.window.emit(spec, states[0])[1],
+                emit_(states[1], **kw)[1], emit_plain_(states[2], **kw)[1]]
+        assert outs[2]["rows"] == outs[2]["rounds"] == 2
+        assert outs[2]["host_syncs"] == 3
+        for out in outs[:2]:
+            for k in OUT_KEYS + ("rows", "rounds", "host_syncs"):
+                assert np.array_equal(out[k], outs[2][k]), k
+        for k in state:
+            assert torch.equal(states[0][k], states[2][k]), k
+            assert torch.equal(states[1][k], states[2][k]), k
+    assert emit_.launches == before
+    assert int(states[2]["next_emit"]) == 70
 
 
 def test_spec_derived_sizes_match_jax():
