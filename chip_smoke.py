@@ -1118,9 +1118,9 @@ def main_path(dev, n_steps: int) -> dict:
 def latency(dev, n_steps: int, warmup: int = 50) -> dict:
     """device_q5_latency's clock: from the batch existing on the host to
     the step's window results being on the host, one step at a time.  Each
-    sample splits into staging (pinning and enqueuing the copies), the step
-    (it waits for the device once, at emission's read) and the sink
-    copy."""
+    sample splits into staging (the fill of a pinned slot and its copy
+    queued), the step (it waits for the device once, at emission's read)
+    and the sink copy."""
     gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
     ex = StreamExecutor(StreamJobConfig(window=SPEC, batch_size=B))
     state = ex.init_state()

@@ -41,6 +41,7 @@ mesh that holds, or is held by, this one.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -61,6 +62,15 @@ ACK_INTERVAL_S = 0.1
 WINDOW_FILL_FACTOR = 3
 #: per-event batch fields: sharded over the mesh (the rest is replicated)
 EVENT_FIELDS = ("ts", "key", "value", "valid")
+#: pinned staging slots of an executor on a card: ``run_stream`` stages
+#: batch i + 1 before step i, so two are filled while a third's copy to the
+#: card may still run
+STAGE_SLOTS = 3
+#: byte alignment of each field's place in a staging slot, and so of the
+#: staged fields on the card
+SLOT_ALIGN = 256
+#: JAX's default 32-bit mode stores int64 as int32 and float64 as float32
+_NARROW = {torch.int64: torch.int32, torch.float64: torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +97,94 @@ def _to_host_tensor(v) -> torch.Tensor:
     float32 on ``device_put``, and so does the port."""
     t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
         np.require(v, requirements="C"))
-    if t.dtype == torch.int64:
-        t = t.to(torch.int32)
-    elif t.dtype == torch.float64:
-        t = t.to(torch.float32)
-    return t
+    return t.to(_NARROW.get(t.dtype, t.dtype))
+
+
+def _staged_dtype(v) -> torch.dtype:
+    """The dtype ``_to_host_tensor`` gives ``v``, without converting it."""
+    dt = v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.empty(0, np.asarray(v).dtype)).dtype
+    return _NARROW.get(dt, dt)
+
+
+def _count_valid(valid) -> int:
+    """The events a batch's ``valid`` marks, counted on the host: a bool
+    column by ``np.count_nonzero`` (torch's CPU sum of a bool tensor widens
+    it to int64 on one thread, about ten times slower), any other by the
+    sum the reference takes (its executor.py:317)."""
+    a = valid.numpy() if isinstance(valid, torch.Tensor) and \
+        valid.dtype == torch.bool else valid
+    if isinstance(a, np.ndarray) and a.dtype == np.bool_:
+        return int(np.count_nonzero(a))
+    return int(_to_host_tensor(valid).sum())
+
+
+def _slot_layout(fields: Dict) -> Tuple[Tuple, int]:
+    """Where a batch's fields lie in a staging slot: ``(name, dtype, shape,
+    offset)`` for every field that is not None, in the batch's order, in
+    the dtype ``_to_host_tensor`` stages it in, each at a byte offset that
+    is a multiple of :data:`SLOT_ALIGN`; and the bytes up to the last
+    field's end."""
+    places, end = [], 0
+    for k, v in fields.items():
+        if v is None:
+            continue
+        dtype, shape = _staged_dtype(v), tuple(np.shape(v))
+        off = -(-end // SLOT_ALIGN) * SLOT_ALIGN
+        places.append((k, dtype, shape, off))
+        end = off + math.prod(shape) * dtype.itemsize
+    return tuple(places), end
+
+
+def _place_view(buf: torch.Tensor, dtype: torch.dtype, shape, off: int
+                ) -> torch.Tensor:
+    """The field of ``dtype`` and ``shape`` at byte ``off`` of ``buf``."""
+    n = math.prod(shape) * dtype.itemsize
+    t = buf[off:off + n].view(dtype)
+    return t if len(shape) == 1 else t.view(shape)
+
+
+def _ready_pinned(v) -> bool:
+    """Whether ``v`` can go to the card as it is: a pinned tensor in a
+    dtype the port stages unchanged."""
+    return isinstance(v, torch.Tensor) and v.dtype not in _NARROW and \
+        v.is_pinned()
+
+
+class _Slot:
+    """One pinned staging buffer laid out for batches of one ``key``
+    (field names, dtypes and shapes): a typed view of each field's place,
+    and the event recorded behind the buffer's last copy to the card."""
+
+    def __init__(self, key, fields: Dict):
+        self.key = key
+        self.places, used = _slot_layout(fields)
+        self.host = torch.empty(used, dtype=torch.uint8, pin_memory=True)
+        self.views = []
+        for place in self.places:
+            t = _place_view(self.host, *place[1:])
+            self.views.append((place[0], t, t.numpy()))
+        self.copied = torch.cuda.Event()
+
+    def fill(self, fields: Dict) -> None:
+        """Each field copied, or converted, into its place: one pass."""
+        for k, t, a in self.views:
+            v = fields[k]
+            if isinstance(v, torch.Tensor):
+                t.copy_(v)
+            else:
+                np.copyto(a, v, casting="unsafe")
+
+    def send(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """Queue one copy of the slot to a fresh buffer on ``device`` (the
+        current stream, not blocking) and record ``copied`` behind it; the
+        fields as typed views of that buffer."""
+        buf = torch.empty(self.host.numel(), dtype=torch.uint8,
+                          device=device)
+        buf.copy_(self.host, non_blocking=True)
+        self.copied.record(torch.cuda.current_stream(device))
+        return {place[0]: _place_view(buf, *place[1:])
+                for place in self.places}
 
 
 class StreamExecutor:
@@ -164,6 +257,15 @@ class StreamExecutor:
         # emission-loop telemetry: rounds run and host syncs they cost
         self.emit_rounds = 0
         self.host_syncs = 0
+        # staging on a card: batches filled into a pinned slot, fills that
+        # waited for the slot's last copy, slots laid out (allocated), and
+        # batches sent as they came, already pinned
+        self.stage_slot_fills = 0
+        self.stage_slot_waits = 0
+        self.stage_slot_layouts = 0
+        self.stage_direct = 0
+        self._slots: List[Optional[_Slot]] = [None] * STAGE_SLOTS
+        self._next_slot = 0
 
     def _require_shard(self) -> None:
         if self.rank is None:
@@ -289,44 +391,87 @@ class StreamExecutor:
         On a mesh, the per-event fields of a global batch (``batch_size``
         rows) are cut to this rank's slice first; a batch of ``batch_size /
         n`` rows is taken as the slice itself.  Other fields (``wm``) are
-        replicated.  On ``cuda`` each field is copied from pinned host
-        memory with ``non_blocking=True`` on the current stream (a field
-        already pinned is not copied again on the host).  Returns
+        replicated.  On ``cuda`` the fields are written, in the dtypes the
+        port stages, into one of :data:`STAGE_SLOTS` pinned slots that the
+        executor reuses (a slot is refilled once the event behind its last
+        copy has completed), and the slot goes to the card in one
+        ``non_blocking`` copy on the current stream; the staged fields are
+        views of that one device buffer, each at a 256-byte-aligned
+        offset.  A batch whose per-event fields are all pinned already is
+        sent field by field as it is, with no host copy.  Returns
         ``(device_batch, valid_count)``: the count of the valid events in
         the batch it was given (the whole global batch's, as the
         reference's executor.py:316 counts before sharding; a slice's when
-        given a slice), taken on the host before the transfer so the hot
-        loop never syncs for it.
+        given a slice), taken on the host with no wait for the card, so
+        the hot loop never syncs for it.
         """
         self._require_shard()
         with self.tracer.span("stream.stage"):
             return self._stage(batch)
 
+    def _rank_rows(self, k: str, v):
+        """This rank's rows of field ``k``: on a mesh, a per-event field of
+        a global batch is cut to the rank's slice."""
+        if self.mesh is None or k not in EVENT_FIELDS:
+            return v
+        rows = len(v)
+        if rows == self.cfg.batch_size:
+            lo = self.rank * self.b_loc
+            return v[lo:lo + self.b_loc]
+        if rows != self.b_loc:
+            raise ValueError(
+                f"{k} has {rows} rows: expected the global batch "
+                f"({self.cfg.batch_size}) or this rank's slice "
+                f"({self.b_loc})")
+        return v
+
     def _stage(self, batch: Dict) -> Tuple[Dict, int]:
-        lo = self.rank * self.b_loc
-        staged, count = {}, 0
-        for k, v in batch.items():
-            if v is None:
-                staged[k] = None
-                continue
+        fields = {k: self._rank_rows(k, v) for k, v in batch.items()
+                  if v is not None}
+        if self.device.type != "cuda":
+            staged = {k: _to_host_tensor(v) for k, v in fields.items()}
+        else:
+            per_event = [fields[k] for k in EVENT_FIELDS if k in fields]
+            if per_event and all(map(_ready_pinned, per_event)):
+                staged = self._send_direct(fields)
+            else:
+                staged = self._send_through_slot(fields)
+        # counted after the fill, which has just read ``valid`` into cache
+        valid = batch.get("valid")
+        count = 0 if valid is None else _count_valid(valid)
+        return {k: staged.get(k) for k in batch}, count
+
+    def _send_direct(self, fields: Dict) -> Dict[str, torch.Tensor]:
+        """Each field to the card as it is (a field not pinned, such as a
+        0-d ``wm``, is pinned first)."""
+        self.stage_direct += 1
+        staged = {}
+        for k, v in fields.items():
             t = _to_host_tensor(v)
-            if k == "valid":
-                count = int(t.sum())
-            if self.mesh is not None and k in EVENT_FIELDS:
-                if t.shape[0] == self.cfg.batch_size:
-                    t = t[lo:lo + self.b_loc]
-                elif t.shape[0] != self.b_loc:
-                    raise ValueError(
-                        f"{k} has {t.shape[0]} rows: expected the global "
-                        f"batch ({self.cfg.batch_size}) or this rank's "
-                        f"slice ({self.b_loc})")
-            if self.device.type == "cuda":
-                if not t.is_pinned():
-                    with self.tracer.span("stream.stage.pin"):
-                        t = t.pin_memory()
-                t = t.to(self.device, non_blocking=True)
-            staged[k] = t
-        return staged, count
+            if not t.is_pinned():
+                with self.tracer.span("stream.stage.pin"):
+                    t = t.pin_memory()
+            staged[k] = t.to(self.device, non_blocking=True)
+        return staged
+
+    def _send_through_slot(self, fields: Dict) -> Dict[str, torch.Tensor]:
+        """The batch written into the ring's next pinned slot, then sent in
+        one copy."""
+        i = self._next_slot
+        self._next_slot = (i + 1) % STAGE_SLOTS
+        slot = self._slots[i]
+        if slot is not None and not slot.copied.query():
+            slot.copied.synchronize()
+            self.stage_slot_waits += 1
+        key = tuple((k, getattr(v, "dtype", type(v)), np.shape(v))
+                    for k, v in fields.items())
+        if slot is None or slot.key != key:
+            slot = self._slots[i] = _Slot(key, fields)
+            self.stage_slot_layouts += 1
+        with self.tracer.span("stream.stage.pin"):
+            slot.fill(fields)
+        self.stage_slot_fills += 1
+        return slot.send(self.device)
 
     # -------------------------------------------------------- snapshots --
     def snapshot(self, state) -> Dict[str, torch.Tensor]:

@@ -27,9 +27,11 @@ The executor's spans:
 
 ======================  ==================================================
 ``stream.stage``        ``stage_batch``, the whole call: the host count of
-                        ``valid``, the pinned copies, the transfers queued
-``stream.stage.pin``    one field's copy into pinned host memory (on a
-                        card, for a field not pinned already)
+                        ``valid``, the fill of the batch's pinned slot and
+                        its one copy to the card queued
+``stream.stage.pin``    the fill of the batch's pinned slot (one a batch on
+                        a card); of a batch already pinned, sent as it is,
+                        the pinning of a field that is not (a 0-d ``wm``)
 ``stream.step``         ``step``, the whole call
 ``stream.accumulate``   the dispatch of ``accumulate`` (one kernel launch)
 ``stream.exchange``     on a mesh, the collectives of a step: the route

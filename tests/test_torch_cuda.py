@@ -54,6 +54,8 @@ from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.data import SyntheticLMData  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
+from repro_torch.streaming.executor import (  # noqa: E402
+    SLOT_ALIGN, STAGE_SLOTS)
 from repro_torch.streaming.window import window_state_init  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -154,6 +156,9 @@ def test_executor_on_cuda_matches_cpu(cuda):
     assert (window_agg.launches, accumulate_.launches,
             emit_.launches) == (before[0], before[1] + 60, before[2] + 60)
     assert gpu.host_syncs == 60
+    # every batch through a pinned slot, the ring laid out once a slot
+    assert (gpu.stage_slot_fills, gpu.stage_slot_layouts,
+            gpu.stage_direct) == (60, STAGE_SLOTS, 0)
     c_state, c_res = StreamExecutor(cfg, device="cpu").run_stream(
         lambda s, B: batches[s // B], 60)
     for k in c_state:
@@ -163,6 +168,74 @@ def test_executor_on_cuda_matches_cpu(cuda):
         np.testing.assert_array_equal(ge, ce)
         np.testing.assert_array_equal(gr, cr)
     _route_inputs_through_the_kernel(cuda)
+
+
+def _host_batch(B, seed):
+    """A batch as callers hand one over: numpy columns, ``key`` in int64
+    (staged as int32), ``value`` a CPU tensor, a 0-d ``wm``."""
+    rng = np.random.RandomState(seed)
+    return {"ts": rng.randint(0, 1 << 30, B).astype(np.int32),
+            "key": rng.randint(-5, 1 << 20, B).astype(np.int64),
+            "value": torch.from_numpy(rng.randn(B).astype(np.float32)),
+            "valid": rng.rand(B) > 0.3, "extra": None,
+            "wm": np.asarray(seed, np.int32)}
+
+
+def _assert_staged(staged, batch):
+    for k, v in batch.items():
+        if v is None:
+            assert staged[k] is None
+            continue
+        want = torch.as_tensor(np.asarray(v))
+        want = want.to({torch.int64: torch.int32}.get(want.dtype,
+                                                      want.dtype))
+        got = staged[k]
+        assert got.is_cuda and got.is_contiguous(), k
+        assert (got.dtype, got.shape) == (want.dtype, want.shape), k
+        assert got.data_ptr() % SLOT_ALIGN == 0, k
+        assert torch.equal(got.cpu(), want), k
+
+
+def test_stage_batch_through_the_slot_ring(cuda):
+    """Depth + 3 batches of differing content through one executor's ring
+    of pinned slots: each arrives whole, in the staged dtypes, the first
+    ones intact after their slots were refilled; one layout a slot, one
+    more when the row count changes; a batch already pinned goes as it
+    is, with no host copy."""
+    B = 4096
+    cfg = StreamJobConfig(window=VectorWindowSpec(size_ms=40, slide_ms=10),
+                          batch_size=B)
+    ex = StreamExecutor(cfg)
+    batches = [_host_batch(B, seed) for seed in range(STAGE_SLOTS + 3)]
+    staged = [ex.stage_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    for b, (s, count) in zip(batches, staged):
+        assert count == int(b["valid"].sum())
+        _assert_staged(s, b)
+    n = len(batches)
+    assert (ex.stage_slot_fills, ex.stage_slot_layouts,
+            ex.stage_direct) == (n, STAGE_SLOTS, 0)
+    assert 0 <= ex.stage_slot_waits <= n
+
+    half = _host_batch(B // 2, seed=99)
+    s, count = ex.stage_batch(half)
+    torch.cuda.synchronize()
+    _assert_staged(s, half)
+    assert count == int(half["valid"].sum())
+    assert (ex.stage_slot_fills, ex.stage_slot_layouts) == (
+        n + 1, STAGE_SLOTS + 1)
+
+    src = _host_batch(B, seed=7)
+    pinned = {k: torch.as_tensor(np.asarray(src[k])).pin_memory()
+              for k in ("ts", "value", "valid")}
+    pinned["key"] = torch.from_numpy(src["key"].astype(np.int32)
+                                     ).pin_memory()
+    pinned["wm"] = src["wm"]
+    s, count = ex.stage_batch(pinned)
+    torch.cuda.synchronize()
+    _assert_staged(s, pinned)
+    assert count == int(pinned["valid"].sum())
+    assert (ex.stage_direct, ex.stage_slot_fills) == (1, n + 1)
 
 
 def _route_inputs_through_the_kernel(cuda):

@@ -24,6 +24,7 @@ from repro.nexmark import (  # noqa: E402
     DisorderedNexmarkGenerator as JaxDisordered,
     NexmarkGenerator as JaxGenerator)
 from repro_torch import streaming as tst  # noqa: E402
+from repro_torch.streaming import executor as texec  # noqa: E402
 from repro_torch.nexmark import (  # noqa: E402
     DisorderedNexmarkGenerator, NexmarkGenerator)
 from repro_torch.streaming.state import (  # noqa: E402
@@ -469,6 +470,67 @@ def test_stage_batch_canonicalises_dtypes_like_jax():
     assert staged["ts"].dtype == staged["key"].dtype == torch.int32
     assert staged["value"].dtype == torch.float32
     assert staged["wm"].dtype == torch.int32 and staged["wm"].dim() == 0
+
+
+def _valid_column(kind):
+    """A ``valid`` column of 64 rows, as a caller may hand it over."""
+    bits = np.random.RandomState(7).rand(4 * 64) > 0.4
+    return {"numpy": lambda: bits[:64],
+            "tensor": lambda: torch.from_numpy(bits[64:128].copy()),
+            "all_false": lambda: np.zeros(64, bool),
+            "all_true": lambda: torch.ones(64, dtype=torch.bool),
+            # a rank's slice of a global batch: a view at an offset
+            "mesh_slice": lambda: bits[128:192],
+            "strided": lambda: bits[::4]}[kind]()
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor", "all_false",
+                                  "all_true", "mesh_slice", "strided"])
+def test_stage_batch_counts_bool_valid_on_the_host(kind):
+    """The host count of a bool ``valid`` is its sum, as the reference's
+    ``stage_batch`` takes it, and the column is staged unchanged."""
+    valid = _valid_column(kind)
+    B = len(valid)
+    jex, tex = _executors(B, size_ms=40, slide_ms=10)
+    batch = {"ts": np.zeros(B, np.int32), "key": np.zeros(B, np.int32),
+             "value": np.ones(B, np.float32), "valid": valid}
+    staged, count = tex.stage_batch(batch)
+    _, want = jex.stage_batch({k: np.asarray(v) for k, v in batch.items()})
+    assert count == want == int(torch.as_tensor(np.asarray(valid)).sum())
+    assert staged["valid"].dtype == torch.bool
+    np.testing.assert_array_equal(staged["valid"].numpy(), np.asarray(valid))
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32, np.int8, np.float32])
+def test_stage_batch_counts_non_bool_valid_as_the_reference(dtype):
+    """A ``valid`` that is not bool is summed, as the reference sums it."""
+    valid = np.array([1, 0, 2, 1, 0, 3, 1, 1], dtype)
+    jex, tex = _executors(8, size_ms=40, slide_ms=10)
+    _, count = tex.stage_batch({"valid": valid})
+    _, want = jex.stage_batch({"valid": valid})
+    assert count == want == 9
+
+
+def test_slot_layout_aligns_every_field_in_its_staged_dtype():
+    """Each field that is not None has its place in a staging slot, in the
+    dtype ``_to_host_tensor`` stages it in, at a 256-byte-aligned offset,
+    after the field before it."""
+    batch = {"ts": np.arange(5, dtype=np.int64),
+             "key": torch.arange(70, dtype=torch.int32),
+             "value": np.ones(3), "valid": np.ones(5, bool),
+             "extra": None, "wm": np.asarray(-1)}
+    places, end = texec._slot_layout(batch)
+    assert [p[0] for p in places] == ["ts", "key", "value", "valid", "wm"]
+    prev_end = 0
+    for k, dtype, shape, off in places:
+        host = texec._to_host_tensor(batch[k])
+        assert (dtype, shape) == (host.dtype, tuple(host.shape)), k
+        assert off % texec.SLOT_ALIGN == 0 and off >= prev_end, k
+        prev_end = off + host.numel() * host.element_size()
+    assert end == prev_end
+    assert [p[1] for p in places] == [torch.int32, torch.int32,
+                                      torch.float32, torch.bool, torch.int32]
+    assert [p[3] for p in places] == [0, 256, 768, 1024, 1280]
 
 
 def test_ieee_fp32_matmul_pins_and_restores():
