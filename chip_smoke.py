@@ -39,17 +39,21 @@ the run with a non-zero exit and no result line:
 1. card: its name and power limit (``nvidia-smi``);
 2. build: every kernel from ``src/repro_torch/kernels/csrc`` with
    ``nvcc``, one process per source, all started together;
-3. kernels: each Hopper kernel against its plain PyTorch version on the
-   card, at its path's shapes and at edge shapes (the fused accumulate
-   with the whole window state compared; route_pack also over memory
-   poisoned first, and as the route plan calls it, without positions;
-   decode_attention also with its lower bound, the linear sliding-window
-   cache's, at the serve shapes and the edges);
+3. kernels: the window_agg op, decode_attention and the route kernels
+   against their plain PyTorch versions on the card, at their paths'
+   shapes and at edge shapes (route_pack also over memory poisoned first,
+   and as the route plan calls it, without positions; decode_attention
+   also with its lower bound, the linear sliding-window cache's, at the
+   serve shapes and the edges); the fused accumulate and emit are held
+   against theirs at their paths' shapes in phase 11, over the whole
+   window state, and at edge shapes by ``pytest -m cuda
+   tests/test_torch_cuda.py``;
 4. Q5 path: device-tier NEXMark Q5 through ``StreamExecutor.run_stream``
    at the paper's configuration (10 s window sliding by 10 ms over 10 000
-   auctions, 16 384 key buckets, 65 536 events per step), held exactly
-   against an independent numpy oracle, with exactly one accumulate
-   launch, one emit launch and one host read a step;
+   auctions, 16 384 key buckets, 65 536 events per step), fed numpy
+   columns as the bridge feeds it, held exactly against an independent
+   numpy oracle, with exactly one accumulate launch, one emit launch, one
+   host read and one pinned slot fill a step;
 5. latency: Q5's per-step event-to-result latency, one step at a time;
 6. summing: Q5 summing bid prices with TF32 switched on globally, held
    against a float64 oracle (emission must stay full float32);
@@ -66,9 +70,8 @@ the run with a non-zero exit and no result line:
    rank's result columns must equal the numpy oracle's exactly with zero
    drops and exactly ``route_pack`` and ``accumulate`` once a step; then
    the reduce plan, 200 steps (its ``psum_scatter`` moves the 66 MB of
-   full-width panes a rank a step, through the host on gloo); then the
-   route step with the fused accumulate against the plain one, in turns,
-   and a profiled stretch of each on rank 0;
+   full-width panes a rank a step, through the host on gloo); then a
+   profiled stretch of the route step on rank 0;
 10. engine path: ``queries.q5(placement="device")`` through the port's
     ``JetCluster``, in process, on the card.  (a) On a virtual clock, the
     reference test's stream (40 auctions, 12 000 events, window 100 /
@@ -83,17 +86,17 @@ the run with a non-zero exit and no result line:
     events/s and results/s sustained, whether the run kept pace, the
     sink's event-to-result latency, the vertices' time shares and the
     device time a step;
-11. timing: Q5's wall a step with the fused accumulate against the plain
-    one, in turns; each kernel at its path's shape beside its plain
-    version, its library yardstick and its bound (``emit`` at a
-    catch-up step of 8 windows; ``decode_attention``
-    also at the ``decode_32k`` shape, and there with ``lo`` on mixtral's
-    linear sliding-window cache: the last 4 096 of 32 768 rows);
-    ptxas' registers, spills and shared memory of the new kernels and
-    route_pack's cluster; then a profiled stretch of each path (device
-    time by kernel, the device's idle share; Q5 also with the plain
-    accumulate; one full-width train step of phase 14 (a)) — last,
-    because the profiler slows every launch after it;
+11. timing: each kernel at its path's shape beside its plain version
+    (``accumulate`` and ``emit`` first checked equal to it), its library
+    yardstick and its bound (``emit`` at a catch-up step of 8
+    windows; ``decode_attention`` also at the ``decode_32k`` shape, and
+    there with ``lo`` on mixtral's linear sliding-window cache: the last
+    4 096 of 32 768 rows); ptxas' registers, spills and shared memory of
+    the new kernels and route_pack's cluster; then a profiled stretch of
+    serving and of one full-width train step of phase 14 (a) (device time
+    by kernel, the device's idle share) — last, because the profiler
+    slows every launch after it.  Q5's time a step and its breakdown are
+    the benchmark's (``jetbench/run.py``);
 12. fault tolerance: (a) phase 10 (a)'s stream with device placement on
     two nodes, exactly-once, a durable snapshot chain and its output
     through a transactional and an idempotent sink into an external
@@ -247,7 +250,6 @@ from repro_torch.snapshot import (  # noqa: E402
 from repro_torch.state import DurableSnapshotStore  # noqa: E402
 from repro_torch.streaming import (  # noqa: E402
     StreamExecutor, StreamJobConfig, VectorWindowSpec)
-from repro_torch.streaming import window as stream_window  # noqa: E402
 from repro_torch.streaming.collectives import psum_scatter  # noqa: E402
 from repro_torch.streaming.window import window_state_init  # noqa: E402
 
@@ -279,8 +281,6 @@ ROUTE_STEPS = 1500
 #: gloo, about 170 ms a step on one shared card): 200 steps check it
 REDUCE_STEPS = 200
 RANK_PROFILE_STEPS = 30
-#: the route step with the fused accumulate against the plain one, in turns
-ROUTE_AB_STEPS = 100
 
 # LM serving (repro/launch/serve.py) of qwen2-1.5b at full width, float32
 ARCH = "qwen2-1.5b"
@@ -402,17 +402,11 @@ def launch_counts() -> dict:
             "route_pack": route_pack.launches}
 
 
-@contextlib.contextmanager
-def plain_accumulate():
-    """Within the block, the streaming tier's accumulate runs its plain
-    version on the card (about 35 PyTorch launches) instead of the fused
-    kernel: the yardstick of phase 11's comparisons, never a path's run."""
-    fused = stream_window.accumulate_
-    stream_window.accumulate_ = accumulate_plain_
-    try:
-        yield
-    finally:
-        stream_window.accumulate_ = fused
+def q5_launches(counts: dict, steps: int, **more) -> dict:
+    """What a Q5 path may launch in ``steps`` steps: one ``accumulate`` and
+    one ``emit`` a step, the launches in ``more``, nothing else."""
+    return dict.fromkeys(counts, 0) | {"accumulate": steps,
+                                       "emit": steps} | more
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -491,150 +485,6 @@ def check_window_agg(dev) -> dict:
     return {"name": "window_agg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/window_agg.cu",
             "replaces": "src/repro/kernels/window_agg.py:54",
-            "max_abs_err": max_err}
-
-
-#: a ring of 16 slots of 512 buckets: one batch spans it more than twice
-SMALL_SPEC = VectorWindowSpec(size_ms=80, slide_ms=10, n_key_buckets=512,
-                              ring_margin=8)
-
-
-def acc_kw(spec) -> dict:
-    return dict(slide_ms=spec.slide_ms,
-                frames_per_window=spec.frames_per_window, wm_lag=spec.wm_lag,
-                frontier_from_data=spec.frontier_from_data)
-
-
-def q5_state(dev, rng, frames: int = 7) -> dict:
-    """A Q5 state after ``frames`` steps: frames 0.. in the ring with some
-    counts, the first window (end 10 ms) emitted."""
-    state = window_state_init(SPEC, device="cpu")
-    state["slot_frame"][:frames] = torch.arange(frames, dtype=torch.int32)
-    state["panes"][:frames] = torch.from_numpy(
-        rng.randint(0, 3, (frames, K)).astype(np.float32))
-    state["next_emit"].fill_(10)
-    state["watermark"].fill_(frames * SLIDE_MS - 1)
-    return {k: v.to(dev) for k, v in state.items()}
-
-
-def accumulate_cases(dev) -> dict:
-    """``{name: (spec, state, [((ts, key, value, valid), wm_hint), ...],
-    exact)}``: a Q5 step at the paper's shape (counts, and bid prices), two
-    frames sharing a slot in one batch, conflicts, late rows, keys -1, K
-    and K + 17, every wm_hint form, no data-driven frontier with wm_lag >
-    0, bf16 and f16 values, two calls back to back, and no rows."""
-    rng = np.random.RandomState(5)
-    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
-
-    def rows(ts, key, valid=None, value=None, dtype=torch.float32):
-        n = len(ts)
-        arrays = (np.asarray(ts, np.int32), np.asarray(key, np.int32),
-                  np.ones(n, np.float32) if value is None
-                  else np.asarray(value, np.float32),
-                  np.ones(n, bool) if valid is None
-                  else np.asarray(valid, bool))
-        t = [torch.from_numpy(a).to(dev) for a in arrays]
-        t[2] = t[2].to(dtype)
-        return tuple(t)
-
-    def small_state(spec=SMALL_SPEC, occupied=None, next_emit=-1):
-        state = window_state_init(spec, device="cpu")
-        for slot, frame in (occupied or {}).items():
-            state["slot_frame"][slot] = frame
-        state["next_emit"].fill_(next_emit)
-        return {k: v.to(dev) for k, v in state.items()}
-
-    def mixed(n, dtype=torch.float32, counts=True):
-        # frames 0..40 over 16 slots: frames share slots within the batch,
-        # half the ring's occupants conflict, frames below 7 are late, keys
-        # run past both ends of [0, K) (-1, K and K + 17 among them)
-        r, k = SMALL_SPEC.ring_len, SMALL_SPEC.n_key_buckets
-        occupied = {i: i + r for i in range(r) if rng.rand() < 0.5}
-        key = rng.randint(-20, k + 40, n)
-        key[:3] = [-1, k, k + 17]
-        return small_state(occupied=occupied, next_emit=150), rows(
-            rng.randint(0, 410, n), key, rng.rand(n) < 0.9,
-            None if counts else rng.randn(n), dtype)
-
-    q5 = q5_batch(gen, 7)
-    q5_prices = q5_batch(gen, 7, price=True)
-    mixed_state, mixed_rows = mixed(50_000)
-    k = SMALL_SPEC.n_key_buckets
-    lag_spec = dataclasses.replace(SMALL_SPEC, wm_lag=25,
-                                   frontier_from_data=False)
-    cases = {
-        "q5_step": (SPEC, q5_state(dev, rng), [(rows(**q5), None)], True),
-        "q5_step_prices": (SPEC, q5_state(dev, rng),
-                           [(rows(**q5_prices), None)], False),
-        "two_frames_one_slot": (SMALL_SPEC, small_state(), [(rows(
-            [25, 185, 27, 183, 21], [1, 2, 1, 4, 9]), None)], True),
-        "conflicts": (SMALL_SPEC, small_state(occupied={2: 2, 5: 21},
-                                              next_emit=30), [(rows(
-            [25, 185, 55, 211, 22, 189], [1, 2, 3, 4, 5, 6]), None)], True),
-        "late_rows": (SMALL_SPEC, small_state(next_emit=150), [(rows(
-            [35, 69, 70, 71, 99, 12], [0, 1, 2, 3, 4, 5],
-            [1, 1, 1, 1, 1, 0]), None)], True),
-        "keys_out_of_range": (SMALL_SPEC, small_state(), [(rows(
-            [5, 5, 5, 75, 75, 155, 155], [-1, k, k + 17, -1, k, k + 17,
-                                          -3 * k]), None)], True),
-        "mixed_counts": (SMALL_SPEC, mixed_state, [(mixed_rows, None)],
-                         True),
-        "hint_int": (SMALL_SPEC, small_state(), [(rows([25, 31], [1, 2]),
-                                                  1234)], True),
-        "hint_tensor": (SMALL_SPEC, small_state(), [(rows([25, 31], [1, 2]),
-                        torch.tensor(1234, dtype=torch.int32, device=dev))],
-                        True),
-        "hint_below_frontier": (SMALL_SPEC, small_state(), [(rows(
-            [25, 310], [1, 2]), 7)], True),
-        "no_frontier_wm_lag": (lag_spec, small_state(lag_spec), [(rows(
-            [25, 310, 47], [1, 2, 3]), 200)], True),
-        "two_calls": (SMALL_SPEC, mixed(5_000)[0], [
-            (mixed(5_000)[1], None), (mixed(5_000)[1], 33)], True),
-        "no_rows": (lag_spec, small_state(lag_spec), [(rows([], []), 90)],
-                    True),
-    }
-    for dtype in (torch.bfloat16, torch.float16):
-        state, r = mixed(20_000, dtype, counts=False)
-        cases[str(dtype)[6:]] = (SMALL_SPEC, state, [(r, None)], False)
-    return cases
-
-
-def check_accumulate(dev) -> dict:
-    """The fused accumulate against accumulate_plain_ on the card from the
-    same state: slot_frame, the watermark, next_emit and the counters
-    exactly, the panes exactly for counts and to rtol 1e-6 for sums; one
-    launch a call, none for no rows.  Returns its kernels-line entry with
-    the largest pane error."""
-    max_err = 0.0
-    for name, (spec, state, calls, exact) in accumulate_cases(dev).items():
-        got = {k: v.clone() for k, v in state.items()}
-        want = {k: v.clone() for k, v in state.items()}
-        for (ts, key, value, valid), hint in calls:
-            before = accumulate_.launches
-            accumulate_(got, ts, key, value, valid, wm_hint=hint,
-                        **acc_kw(spec))
-            torch.cuda.synchronize()
-            if accumulate_.launches - before != (1 if ts.numel() else 0):
-                raise AssertionError(f"accumulate {name}: launches off")
-            accumulate_plain_(want, ts, key, value, valid, wm_hint=hint,
-                              **acc_kw(spec))
-            for k in want:
-                if k == "panes" and not exact:
-                    torch.testing.assert_close(got[k], want[k], **F32_TOL)
-                elif not torch.equal(got[k], want[k]):
-                    raise AssertionError(f"accumulate {name}: {k} differs "
-                                         f"from the plain version")
-        err = float((got["panes"] - want["panes"]).abs().max())
-        max_err = max(max_err, err)
-        drops = (int(got["dropped_late"]), int(got["dropped_conflict"]))
-        log(f"accumulate {name}: N={sum(c[0][0].numel() for c in calls)} "
-            f"R={spec.ring_len} K={spec.n_key_buckets} "
-            f"{calls[0][0][2].dtype} calls={len(calls)} drops={drops} "
-            f"watermark={int(got['watermark'])} max_abs_err={err:.3g} ok")
-    return {"name": "accumulate", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/window_agg.cu",
-            "replaces": "src/repro/kernels/window_agg.py:54",
-            "replaces_jnp": "src/repro/streaming/window.py:116",
             "max_abs_err": max_err}
 
 
@@ -1000,22 +850,21 @@ def check_route(dev) -> list:
 
 
 # -- phase 4 -----------------------------------------------------------------
-def pinned_batches(gen, n_steps: int):
-    """``n_steps`` Q5 batches generated ahead into pinned host memory, and
-    the per-frame bid histogram of each (the oracle's input)."""
-    cols = {"ts": torch.int32, "key": torch.int32, "value": torch.float32,
-            "valid": torch.bool}
-    bufs = {k: torch.empty((n_steps, B), dtype=d, pin_memory=True)
-            for k, d in cols.items()}
-    hist = np.zeros((n_steps, K), np.int64)
+def batches_ahead(seqs_of, n_steps: int):
+    """``n_steps`` Q5 batches generated ahead as numpy columns, as the
+    bridge hands batches to the executor (batch ``i`` holds the events of
+    sequence numbers ``seqs_of(i)``, all in frame ``i``), and the
+    per-frame bid histogram of each over all K buckets (the oracle's
+    input)."""
+    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
+    batches, hist = [], np.zeros((n_steps, K), np.int32)
     for i in range(n_steps):
-        b = q5_batch(gen, i)
+        b = q5_events(gen, seqs_of(i))
         if not (b["ts"] // SLIDE_MS == i).all():
             raise AssertionError(f"step {i} spans more than frame {i}")
-        for k in cols:
-            bufs[k][i].numpy()[:] = b[k]
+        batches.append(b)
         hist[i] = np.bincount(b["key"][b["valid"]], minlength=K)
-    return [{k: bufs[k][i] for k in cols} for i in range(n_steps)], hist
+    return batches, hist
 
 
 def window_oracle(hist: np.ndarray) -> np.ndarray:
@@ -1052,11 +901,10 @@ def check_against_oracle(results, oracle, n_steps: int, exact: bool):
 
 
 def main_path(dev, n_steps: int) -> dict:
-    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
     t0 = time.perf_counter()
-    batches, hist = pinned_batches(gen, n_steps)
-    log(f"main path: {n_steps} batches of {B} events generated into pinned "
-        f"memory in {time.perf_counter() - t0:.1f} s")
+    batches, hist = batches_ahead(lambda i: rank_seqs(i, 0, 1), n_steps)
+    log(f"main path: {n_steps} batches of {B} events generated as numpy "
+        f"columns in {time.perf_counter() - t0:.1f} s")
     cfg = StreamJobConfig(window=SPEC, batch_size=B)
 
     def feed(start, size):
@@ -1073,13 +921,7 @@ def main_path(dev, n_steps: int) -> dict:
     state, results = ex.run_stream(feed, n_steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = accumulate_.launches
-    emits = emit_.launches
-    others = {k: v for k, v in launch_counts().items()
-              if k not in ("accumulate", "emit")}
-    if any(others.values()):
-        raise AssertionError(f"other kernels launched on the Q5 path: "
-                             f"{others}")
+    counts = launch_counts()
 
     oracle = window_oracle(hist)
     n_windows = check_against_oracle(results, oracle, n_steps, exact=True)
@@ -1087,14 +929,13 @@ def main_path(dev, n_steps: int) -> dict:
     drops = (int(state["dropped_late"]), int(state["dropped_conflict"]))
     if drops != (0, 0):
         raise AssertionError(f"dropped (late, conflict) = {drops}")
-    if launches != n_steps:                 # one accumulate launch a step
-        raise AssertionError(f"accumulate launched {launches} times in "
-                             f"{n_steps} steps")
-    if emits != n_steps or ex.host_syncs != n_steps:
-        # one emit launch and one host read a step
-        raise AssertionError(f"emit launched {emits} times with "
-                             f"{ex.host_syncs} host syncs in {n_steps} "
-                             f"steps")
+    # one accumulate launch, one emit launch, one host read and one pinned
+    # slot fill a step, and no other kernel
+    if (counts != q5_launches(counts, n_steps) or ex.host_syncs != n_steps
+            or ex.stage_slot_fills != n_steps):
+        raise AssertionError(f"in {n_steps} steps: launches {counts}, "
+                             f"{ex.host_syncs} host syncs, "
+                             f"{ex.stage_slot_fills} pinned slot fills")
     bids = int(hist.sum())
     out = {
         "steps": n_steps, "events_per_step": B,
@@ -1105,8 +946,10 @@ def main_path(dev, n_steps: int) -> dict:
         "bids_per_s": bids / dt,
         "emit_rounds_per_step": ex.emit_rounds / n_steps,
         "host_syncs_per_step": ex.host_syncs / n_steps,
+        "stage_slot_fills": ex.stage_slot_fills,
+        "stage_slot_waits": ex.stage_slot_waits,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launch_counts(),
+        "launches": counts,
     }
     log(f"main path: {n_windows} windows ({full} full) equal the numpy "
         f"oracle exactly; drops 0; {json.dumps(out)}")
@@ -1360,27 +1203,6 @@ def card_vs_cpu(dev) -> dict:
 
 
 # -- phase 9 -----------------------------------------------------------------
-def rank_batches(rank: int, ranks: int, n_steps: int):
-    """Rank ``rank``'s slice of every step's Q5 batch, generated ahead into
-    pinned host memory (no rank makes another's events), and the per-frame
-    bid histogram of the slice over all K buckets (the oracle's input)."""
-    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
-    b_loc = B // ranks
-    cols = {"ts": torch.int32, "key": torch.int32, "value": torch.float32,
-            "valid": torch.bool}
-    bufs = {k: torch.empty((n_steps, b_loc), dtype=d, pin_memory=True)
-            for k, d in cols.items()}
-    hist = np.zeros((n_steps, K), np.int32)
-    for i in range(n_steps):
-        b = q5_events(gen, rank_seqs(i, rank, ranks))
-        if not (b["ts"] // SLIDE_MS == i).all():
-            raise AssertionError(f"step {i} spans more than frame {i}")
-        for k in cols:
-            bufs[k][i].numpy()[:] = b[k]
-        hist[i] = np.bincount(b["key"][b["valid"]], minlength=K)
-    return [{k: bufs[k][i] for k in cols} for i in range(n_steps)], hist
-
-
 def rank_plan(ex, mesh, dev, feed, hist, n_steps: int) -> dict:
     """One plan's measured run on this rank, held against the oracle: this
     rank's columns of the global per-frame histograms (``psum_scatter`` of
@@ -1408,10 +1230,8 @@ def rank_plan(ex, mesh, dev, feed, hist, n_steps: int) -> dict:
     # exactly: one accumulate and one emit a step, one route_pack a route
     # step (its histogram is route_counts' device function inside it), and
     # no standalone route_counts or route_offsets
-    want = {"window_agg": 0, "accumulate": n_steps, "emit": n_steps,
-            "decode_attention": 0,
-            "route_counts": 0, "route_offsets": 0,
-            "route_pack": n_steps if cfg.exchange == "route" else 0}
+    want = q5_launches(launches, n_steps, route_pack=n_steps
+                       if cfg.exchange == "route" else 0)
     for k, n in want.items():
         if launches[k] != n:
             raise AssertionError(f"{cfg.exchange}: {k} launched "
@@ -1482,7 +1302,9 @@ def q5_rank(rank: int, world: int, dev, route_steps: int, reduce_steps: int,
     the reduce plan, then the profiled route stretch."""
     mesh = make_data_mesh("cuda")
     t0 = time.perf_counter()
-    batches, hist = rank_batches(rank, world, max(route_steps, reduce_steps))
+    # this rank's slice of every step (no rank makes another's events)
+    batches, hist = batches_ahead(lambda i: rank_seqs(i, rank, world),
+                                  max(route_steps, reduce_steps))
     gen_s = time.perf_counter() - t0
 
     def feed(start, size):
@@ -1497,27 +1319,8 @@ def q5_rank(rank: int, world: int, dev, route_steps: int, reduce_steps: int,
         cfg = StreamJobConfig(window=SPEC, batch_size=B, exchange=exchange)
         ex = StreamExecutor(cfg, mesh=mesh, device=dev)
         out[exchange] = rank_plan(ex, mesh, dev, feed, hist, n_steps)
-    # the route step with the fused accumulate against the plain one, in
-    # turns and unprofiled, then each profiled (the profiler slows every
-    # launch after it starts)
-    cfg = StreamJobConfig(window=SPEC, batch_size=B, exchange="route")
-    walls = {"fused": [], "plain": []}
-    for which in ("plain", "fused", "fused", "plain"):
-        with plain_accumulate() if which == "plain" else \
-                contextlib.nullcontext():
-            dist.barrier()
-            t0 = time.perf_counter()
-            StreamExecutor(cfg, mesh=mesh, device=dev).run_stream(
-                feed, ROUTE_AB_STEPS)
-            torch.cuda.synchronize()
-            walls[which].append((time.perf_counter() - t0)
-                                / ROUTE_AB_STEPS * 1e3)
-    out["route_ab_wall_ms_per_step"] = walls
     out["profile"] = rank_profile(rank, mesh, dev, feed, profile_steps,
-                                  min(walls["fused"]))
-    with plain_accumulate():
-        out["profile_plain_accumulate"] = rank_profile(
-            rank, mesh, dev, feed, profile_steps, min(walls["plain"]))
+                                  out["route"]["wall_ms_per_step"])
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -1567,19 +1370,7 @@ def q5_ranks() -> dict:
             "launches_per_rank": [r["launches"] for r in runs]}
         log(f"Q5 across ranks, {plan} plan: every rank's columns equal the "
             f"numpy oracle exactly, drops 0; {json.dumps(res[plan])}")
-    res["profile"] = per_rank[0]["profile"]
-    res["profile_plain_accumulate"] = per_rank[0]["profile_plain_accumulate"]
-    res["route_ab_wall_ms_per_step"] = [r["route_ab_wall_ms_per_step"]
-                                        for r in per_rank]
-    plain = res["profile_plain_accumulate"]
-    log(f"route step on rank 0 with the plain accumulate: wall "
-        f"{plain['wall_ms_per_step']:.4f} ms, device "
-        f"{plain['device_ms_per_step']:.4f} ms, idle share "
-        f"{plain['device_idle_share']:.4f}, "
-        f"{plain['device_launches_per_step']:.2f} device launches a step; "
-        f"walls a step in turns (plain, fused, fused, plain) on every rank: "
-        f"{json.dumps(res['route_ab_wall_ms_per_step'])}")
-    prof = res["profile"]
+    res["profile"] = prof = per_rank[0]["profile"]
     log(f"route plan per step on rank 0: wall {prof['wall_ms_per_step']:.4f}"
         f" ms, device {prof['device_ms_per_step']:.4f} ms, idle share "
         f"{prof['device_idle_share']:.4f}, "
@@ -1816,10 +1607,7 @@ def engine_paced(dev, event_s: float = ENGINE_EVENT_S) -> dict:
     if any(counters.values()):
         raise AssertionError(f"drops or collisions: {counters}")
     steps = proc._steps + 1                         # + the warm-up
-    others = {k: v for k, v in launches.items()
-              if k not in ("accumulate", "emit")}
-    if launches["accumulate"] != steps or launches["emit"] != steps or \
-            any(others.values()):
+    if launches != q5_launches(launches, steps):
         raise AssertionError(f"{launches} in {steps} device steps")
 
     ideal = t0 + (ts + 1) / 1000.0
@@ -1937,10 +1725,7 @@ class DeviceSteps:
         if any(p.executor.device.type != "cuda"
                for p in self.procs.values()):
             raise AssertionError(f"{what}: a device vertex off the card")
-        others = {k: v for k, v in launches.items()
-                  if k not in ("accumulate", "emit")}
-        if launches["accumulate"] != steps or launches["emit"] != steps or \
-                any(others.values()):
+        if launches != q5_launches(launches, steps):
             raise AssertionError(f"{what}: {launches} in {steps} device "
                                  f"steps")
         return steps
@@ -3876,7 +3661,8 @@ def profile_window_agg(fns: dict, entry: dict) -> None:
 def time_accumulate(dev) -> dict:
     """The fused accumulate at a Q5 step (the main path's call: one step's
     batch into the paper's (1008, 16384) panes, frames 0..6 in the ring)
-    beside the plain version, by CUDA events
+    beside the plain version, after one call of each from the same state
+    has come out equal in every entry, by CUDA events
     over 200 back-to-back calls in turns, then device time alone
     (profiler); and its bound: ts, key, value and valid read once,
     slot_frame read once, every pane cell the batch touches read and
@@ -3886,10 +3672,29 @@ def time_accumulate(dev) -> dict:
     b = q5_batch(NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS), 7)
     ts, key, value, valid = (torch.from_numpy(b[k]).to(dev)
                              for k in ("ts", "key", "value", "valid"))
-    base = q5_state(dev, rng)
-    states = {w: {k: v.clone() for k, v in base.items()}
+    # the state after 7 steps: the first window (end 10 ms) emitted
+    base = window_state_init(SPEC, device="cpu")
+    base["slot_frame"][:7] = torch.arange(7, dtype=torch.int32)
+    base["panes"][:7] = torch.from_numpy(
+        rng.randint(0, 3, (7, K)).astype(np.float32))
+    base["next_emit"].fill_(10)
+    base["watermark"].fill_(7 * SLIDE_MS - 1)
+    states = {w: {k: v.to(dev, copy=True) for k, v in base.items()}
               for w in ("kernel", "plain")}
-    kw = acc_kw(SPEC)
+    kw = dict(slide_ms=SPEC.slide_ms, frames_per_window=SPEC.frames_per_window,
+              wm_lag=SPEC.wm_lag, frontier_from_data=SPEC.frontier_from_data)
+    # one call of each from the same state: Q5 counts are integers, so
+    # every entry, panes included, must come out equal
+    got = accumulate_({k: v.to(dev, copy=True) for k, v in base.items()},
+                      ts, key, value, valid, **kw)
+    want = accumulate_plain_({k: v.to(dev, copy=True)
+                              for k, v in base.items()},
+                             ts, key, value, valid, **kw)
+    for k in base:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"accumulate differs from the plain version "
+                                 f"on {k}")
+    max_abs_err = float((got["panes"] - want["panes"]).abs().max())
     fns = {"kernel": lambda: accumulate_(states["kernel"], ts, key, value,
                                          valid, **kw),
            "plain": lambda: accumulate_plain_(states["plain"], ts, key,
@@ -3910,6 +3715,7 @@ def time_accumulate(dev) -> dict:
     res = {"ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "bytes": bytes_moved, "library_ms": None,
+           "max_abs_err": max_abs_err,
            "device_ms": dev_only["kernel"],
            "plain_device_ms": dev_only["plain"],
            "events_ms": times}
@@ -4005,34 +3811,6 @@ def profile_emit(fns: dict, entry: dict) -> None:
     log(f"emit device time (profiler) ms {json.dumps(dev_only)}")
 
 
-def q5_wall_ab(dev, n_steps: int = 300) -> dict:
-    """Q5 wall ms a step with the fused accumulate and with the plain one
-    on the card, in turns (plain, fused, fused, plain), before any
-    profiler runs in this process."""
-    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
-    batches, _ = pinned_batches(gen, n_steps)
-    cfg = StreamJobConfig(window=SPEC, batch_size=B)
-
-    def feed(start, size):
-        return batches[start // size]
-
-    walls = {"fused": [], "plain": []}
-    for which in ("plain", "fused", "fused", "plain"):
-        with plain_accumulate() if which == "plain" else \
-                contextlib.nullcontext():
-            StreamExecutor(cfg).run_stream(feed, 32)            # warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            StreamExecutor(cfg).run_stream(feed, n_steps)
-            torch.cuda.synchronize()
-            walls[which].append((time.perf_counter() - t0) / n_steps * 1e3)
-    res = {"steps": n_steps, "wall_ms_per_step": walls,
-           "fused_ms": min(walls["fused"]), "plain_ms": min(walls["plain"])}
-    log(f"Q5 wall a step, fused accumulate against the plain one (in "
-        f"turns): {json.dumps(res)}")
-    return res
-
-
 def new_kernel_resources(dev) -> dict:
     """Registers, spills and shared memory (ptxas) of the fused accumulate,
     of emit and of route_pack, and route_pack's cluster at the path's plan: blocks,
@@ -4054,34 +3832,6 @@ def new_kernel_resources(dev) -> dict:
     if (blocks, threads) != (plan.blocks, 1024) or clusters < 1:
         raise AssertionError(f"route_pack's cluster: {res}")
     log(f"new kernels' resources: {json.dumps(res)}")
-    return res
-
-
-def profile_main_path(dev, wall_ms_per_step: float, n_steps: int = 50,
-                      plain: bool = False):
-    """Where a main-path step's time goes: device time by kernel over a
-    profiled stretch, against an unprofiled run's wall time per step;
-    ``plain``: with the plain accumulate on the card."""
-    gen = NexmarkGenerator(rate=RATE, n_keys=N_AUCTIONS)
-    batches, _ = pinned_batches(gen, n_steps)
-    cfg = StreamJobConfig(window=SPEC, batch_size=B)
-    with plain_accumulate() if plain else contextlib.nullcontext():
-        kernels = profiled(lambda: StreamExecutor(cfg).run_stream(
-            lambda s, size: batches[s // size], n_steps), iters=1)
-    busy = sum(ms for ms, _ in kernels.values()) / n_steps
-    res = {"accumulate": "plain" if plain else "fused",
-           "wall_ms_per_step": wall_ms_per_step,
-           "device_ms_per_step": busy,
-           "device_idle_share": 1 - busy / wall_ms_per_step,
-           "device_launches_per_step": sum(
-               c for _, c in kernels.values()) / n_steps}
-    log(f"main path per step: {json.dumps(res)}; top device time per step:")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    for name, (ms, launches) in top:
-        log(f"  {ms / n_steps:.5f} ms  x{launches / n_steps:.2f}  "
-            f"{name[:100]}")
-    res["top"] = [[name[:100], ms / n_steps, c / n_steps]
-                  for name, (ms, c) in top]
     return res
 
 
@@ -4420,7 +4170,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     window = check_window_agg(dev)
-    acc = check_accumulate(dev)
+    # phase 11 holds the fused accumulate against its plain version;
+    # phases 4, 9, 10 and 12 run it
+    acc = {"name": "accumulate", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/window_agg.cu",
+           "replaces": "src/repro/kernels/window_agg.py:54",
+           "replaces_jnp": "src/repro/streaming/window.py:116"}
     attn = check_decode_attention(dev)
     routes = check_route(dev)
     path = main_path(dev, MAIN_STEPS)
@@ -4482,7 +4237,6 @@ def main() -> int:
             "train_olmo": trains["full_width"]["launches"][entry["name"]],
             "mesh_ranks": meshes["launches"][entry["name"]]}
     # phase 11: event timings first, then the profiler
-    ab = q5_wall_ab(dev)
     attn.update(time_decode_attention(dev))
     time_route(dev, routes)
     op_timing, op_calls = time_window_agg(dev)
@@ -4500,16 +4254,12 @@ def main() -> int:
     profile_window_agg(op_calls, window)
     profile_emit(emit_calls, emit)
     profile_decode_attention(dev, attn)
-    prof = profile_main_path(dev, ab["fused_ms"])
-    prof_plain = profile_main_path(dev, ab["plain_ms"], plain=True)
     serve_prof = profile_serve(dev, cfg, params, step_ms)
     del params
     train_prof = profile_train(dev, trains["full_width"]["step_ms_p50"])
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s")
     print(json.dumps({"main_path": path, "latency": lat, "summing": summ,
-                      "q5_wall_ab": ab, "profile": prof,
-                      "profile_plain_accumulate": prof_plain,
                       "serve": serve, "serve_tf32": tf32,
                       "serve_card_vs_cpu": vs_cpu,
                       "serve_profile": serve_prof,

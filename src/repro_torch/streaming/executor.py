@@ -91,20 +91,20 @@ class StreamJobConfig:
     route_capacity_factor: float = 2.0
 
 
-def _to_host_tensor(v) -> torch.Tensor:
-    """A CPU tensor of ``v`` in the dtypes the reference's device arrays
-    have: JAX's default 32-bit mode stores int64 as int32 and float64 as
-    float32 on ``device_put``, and so does the port."""
-    t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
-        np.require(v, requirements="C"))
-    return t.to(_NARROW.get(t.dtype, t.dtype))
-
-
 def _staged_dtype(v) -> torch.dtype:
-    """The dtype ``_to_host_tensor`` gives ``v``, without converting it."""
+    """The dtype the port stages ``v`` in: the reference's device arrays'.
+    JAX's default 32-bit mode stores int64 as int32 and float64 as float32
+    on ``device_put``, and so does the port."""
     dt = v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(
         np.empty(0, np.asarray(v).dtype)).dtype
     return _NARROW.get(dt, dt)
+
+
+def _to_host_tensor(v) -> torch.Tensor:
+    """A CPU tensor of ``v`` in its staged dtype."""
+    t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.require(v, requirements="C"))
+    return t.to(_staged_dtype(t))
 
 
 def _count_valid(valid) -> int:
@@ -142,13 +142,6 @@ def _place_view(buf: torch.Tensor, dtype: torch.dtype, shape, off: int
     n = math.prod(shape) * dtype.itemsize
     t = buf[off:off + n].view(dtype)
     return t if len(shape) == 1 else t.view(shape)
-
-
-def _ready_pinned(v) -> bool:
-    """Whether ``v`` can go to the card as it is: a pinned tensor in a
-    dtype the port stages unchanged."""
-    return isinstance(v, torch.Tensor) and v.dtype not in _NARROW and \
-        v.is_pinned()
 
 
 class _Slot:
@@ -191,9 +184,10 @@ class StreamExecutor:
     """Single-device executor (``mesh=None``) or this rank's shard of an
     SPMD one over ``mesh``'s ``"data"`` dimension; on ``cuda`` unless
     ``device`` says otherwise (``device="cpu"`` runs every kernel's plain
-    version).  ``tracer`` (a ``tracing.Tracer``) records the spans of its
-    staging, steps, emission and results (``tracing``'s table); None
-    records nothing."""
+    version).  On a card every batch is staged through a ring of pinned
+    slots (:meth:`stage_batch`).  ``tracer`` (a ``tracing.Tracer``) records
+    the spans of its staging, steps, emission and results (``tracing``'s
+    table); None records nothing."""
 
     #: device-held step outputs are copied to the host in chunks of this
     #: many steps, bounding live buffers without a per-step copy
@@ -258,12 +252,10 @@ class StreamExecutor:
         self.emit_rounds = 0
         self.host_syncs = 0
         # staging on a card: batches filled into a pinned slot, fills that
-        # waited for the slot's last copy, slots laid out (allocated), and
-        # batches sent as they came, already pinned
+        # waited for the slot's last copy, and slots laid out (allocated)
         self.stage_slot_fills = 0
         self.stage_slot_waits = 0
         self.stage_slot_layouts = 0
-        self.stage_direct = 0
         self._slots: List[Optional[_Slot]] = [None] * STAGE_SLOTS
         self._next_slot = 0
 
@@ -386,7 +378,7 @@ class StreamExecutor:
 
     def stage_batch(self, batch: Dict) -> Tuple[Dict, int]:
         """Begin the host->device transfer of ``batch`` (numpy arrays or
-        CPU tensors) without blocking.
+        CPU tensors, pinned or not) without blocking.
 
         On a mesh, the per-event fields of a global batch (``batch_size``
         rows) are cut to this rank's slice first; a batch of ``batch_size /
@@ -397,8 +389,7 @@ class StreamExecutor:
         copy has completed), and the slot goes to the card in one
         ``non_blocking`` copy on the current stream; the staged fields are
         views of that one device buffer, each at a 256-byte-aligned
-        offset.  A batch whose per-event fields are all pinned already is
-        sent field by field as it is, with no host copy.  Returns
+        offset.  Every batch takes this one path.  Returns
         ``(device_batch, valid_count)``: the count of the valid events in
         the batch it was given (the whole global batch's, as the
         reference's executor.py:316 counts before sharding; a slice's when
@@ -431,28 +422,11 @@ class StreamExecutor:
         if self.device.type != "cuda":
             staged = {k: _to_host_tensor(v) for k, v in fields.items()}
         else:
-            per_event = [fields[k] for k in EVENT_FIELDS if k in fields]
-            if per_event and all(map(_ready_pinned, per_event)):
-                staged = self._send_direct(fields)
-            else:
-                staged = self._send_through_slot(fields)
+            staged = self._send_through_slot(fields)
         # counted after the fill, which has just read ``valid`` into cache
         valid = batch.get("valid")
         count = 0 if valid is None else _count_valid(valid)
         return {k: staged.get(k) for k in batch}, count
-
-    def _send_direct(self, fields: Dict) -> Dict[str, torch.Tensor]:
-        """Each field to the card as it is (a field not pinned, such as a
-        0-d ``wm``, is pinned first)."""
-        self.stage_direct += 1
-        staged = {}
-        for k, v in fields.items():
-            t = _to_host_tensor(v)
-            if not t.is_pinned():
-                with self.tracer.span("stream.stage.pin"):
-                    t = t.pin_memory()
-            staged[k] = t.to(self.device, non_blocking=True)
-        return staged
 
     def _send_through_slot(self, fields: Dict) -> Dict[str, torch.Tensor]:
         """The batch written into the ring's next pinned slot, then sent in

@@ -30,8 +30,7 @@ The executor's spans:
                         ``valid``, the fill of the batch's pinned slot and
                         its one copy to the card queued
 ``stream.stage.pin``    the fill of the batch's pinned slot (one a batch on
-                        a card); of a batch already pinned, sent as it is,
-                        the pinning of a field that is not (a 0-d ``wm``)
+                        a card)
 ``stream.step``         ``step``, the whole call
 ``stream.accumulate``   the dispatch of ``accumulate`` (one kernel launch)
 ``stream.exchange``     on a mesh, the collectives of a step: the route

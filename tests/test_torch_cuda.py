@@ -157,8 +157,8 @@ def test_executor_on_cuda_matches_cpu(cuda):
             emit_.launches) == (before[0], before[1] + 60, before[2] + 60)
     assert gpu.host_syncs == 60
     # every batch through a pinned slot, the ring laid out once a slot
-    assert (gpu.stage_slot_fills, gpu.stage_slot_layouts,
-            gpu.stage_direct) == (60, STAGE_SLOTS, 0)
+    assert (gpu.stage_slot_fills, gpu.stage_slot_layouts) == (
+        60, STAGE_SLOTS)
     c_state, c_res = StreamExecutor(cfg, device="cpu").run_stream(
         lambda s, B: batches[s // B], 60)
     for k in c_state:
@@ -200,8 +200,8 @@ def test_stage_batch_through_the_slot_ring(cuda):
     """Depth + 3 batches of differing content through one executor's ring
     of pinned slots: each arrives whole, in the staged dtypes, the first
     ones intact after their slots were refilled; one layout a slot, one
-    more when the row count changes; a batch already pinned goes as it
-    is, with no host copy."""
+    more when the row count changes, and one more for a batch of pinned
+    tensors, which goes through a slot like any other."""
     B = 4096
     cfg = StreamJobConfig(window=VectorWindowSpec(size_ms=40, slide_ms=10),
                           batch_size=B)
@@ -213,8 +213,7 @@ def test_stage_batch_through_the_slot_ring(cuda):
         assert count == int(b["valid"].sum())
         _assert_staged(s, b)
     n = len(batches)
-    assert (ex.stage_slot_fills, ex.stage_slot_layouts,
-            ex.stage_direct) == (n, STAGE_SLOTS, 0)
+    assert (ex.stage_slot_fills, ex.stage_slot_layouts) == (n, STAGE_SLOTS)
     assert 0 <= ex.stage_slot_waits <= n
 
     half = _host_batch(B // 2, seed=99)
@@ -235,7 +234,8 @@ def test_stage_batch_through_the_slot_ring(cuda):
     torch.cuda.synchronize()
     _assert_staged(s, pinned)
     assert count == int(pinned["valid"].sum())
-    assert (ex.stage_direct, ex.stage_slot_fills) == (1, n + 1)
+    assert (ex.stage_slot_fills, ex.stage_slot_layouts) == (
+        n + 2, STAGE_SLOTS + 2)
 
 
 def _route_inputs_through_the_kernel(cuda):
@@ -358,6 +358,12 @@ def _acc_case(name, device):
         state["next_emit"] = np.int32(150)       # min_frame 15 - 8 = 7
         calls = [(rows([35, 69, 70, 71, 99, 12], [0, 1, 2, 3, 4, 5],
                        [1, 1, 1, 1, 1, 0]), None)]
+    elif name == "keys_out_of_range":
+        # only keys off [0, K), in the ring's first, a middle and its last
+        # slot: -1 in slot 0 wraps to the ring's end, K + 17 in slot R - 1
+        # runs past it
+        calls = [(rows([5, 5, 5, 75, 75, 155, 155],
+                       [-1, K, K + 17, -1, K, K + 17, -3 * K]), None)]
     elif name == "mixed_counts":
         calls = [(mixed(50_000, True), None)]
     elif name == "mixed_sums":
@@ -387,9 +393,10 @@ def _acc_case(name, device):
 
 
 ACC_CASES = ["q5_step", "q5_step_prices", "two_frames_one_slot", "conflicts",
-             "late_rows", "mixed_counts", "mixed_sums", "bfloat16", "float16",
-             "hint_int", "hint_tensor", "hint_below_frontier",
-             "no_frontier_wm_lag", "two_calls", "empty_no_frontier"]
+             "late_rows", "keys_out_of_range", "mixed_counts", "mixed_sums",
+             "bfloat16", "float16", "hint_int", "hint_tensor",
+             "hint_below_frontier", "no_frontier_wm_lag", "two_calls",
+             "empty_no_frontier"]
 
 
 @pytest.mark.parametrize("name", ACC_CASES)
