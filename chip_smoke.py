@@ -948,6 +948,8 @@ def main_path(dev, n_steps: int) -> dict:
         "host_syncs_per_step": ex.host_syncs / n_steps,
         "stage_slot_fills": ex.stage_slot_fills,
         "stage_slot_waits": ex.stage_slot_waits,
+        "result_chunks": ex.result_chunks,
+        "result_ring_waits": ex.result_ring_waits,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": counts,
     }

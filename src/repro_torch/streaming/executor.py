@@ -55,6 +55,7 @@ from ..devices import resolve_device
 from ..kernels.route import MAX_DEST, route_pack
 from ..launch.mesh import mesh_ranks
 from . import collectives as coll
+from .results import Delivery, ResultRing, pinned_ring
 from .window import (VectorWindowSpec, accumulate, emit,
                      step as window_step, window_state_init)
 
@@ -185,12 +186,15 @@ class StreamExecutor:
     SPMD one over ``mesh``'s ``"data"`` dimension; on ``cuda`` unless
     ``device`` says otherwise (``device="cpu"`` runs every kernel's plain
     version).  On a card every batch is staged through a ring of pinned
-    slots (:meth:`stage_batch`).  ``tracer`` (a ``tracing.Tracer``) records
-    the spans of its staging, steps, emission and results (``tracing``'s
-    table); None records nothing."""
+    slots (:meth:`stage_batch`), and ``run_stream``'s results come back
+    through a ring of pinned chunks (``streaming.results``).  ``tracer`` (a
+    ``tracing.Tracer``) records the spans of its staging, steps, emission
+    and results (``tracing``'s table); None records nothing."""
 
-    #: device-held step outputs are copied to the host in chunks of this
-    #: many steps, bounding live buffers without a per-step copy
+    #: on the CPU, ``run_stream`` copies the steps' results to host arrays
+    #: this many steps at a time; on a card a result chunk holds
+    #: ``max(emit_buffer_rows, COLLECT_CHUNK * max_windows_per_step)``
+    #: rows, so every step's rows fit an empty chunk
     COLLECT_CHUNK = 64
 
     def __init__(self, cfg: StreamJobConfig,
@@ -258,6 +262,11 @@ class StreamExecutor:
         self.stage_slot_layouts = 0
         self._slots: List[Optional[_Slot]] = [None] * STAGE_SLOTS
         self._next_slot = 0
+        # results on a card: chunks of the pinned ring delivered to the
+        # host, and chunks the loop waited for the helper thread to free
+        self.result_chunks = 0
+        self.result_ring_waits = 0
+        self._ring: Optional[ResultRing] = None
 
     def _require_shard(self) -> None:
         if self.rank is None:
@@ -586,24 +595,73 @@ class StreamExecutor:
         ``event_gen(start, size)`` for its events: the global batch
         ``(i B, B)`` on one device, this rank's slice ``(i B + r B / n, B /
         n)`` on a mesh, so no rank makes another's events.  Batch ``i+1``
-        is staged host->device before step ``i`` runs.  A step's valid rows
-        (a prefix of its output buffer) are cut out on the device; only
-        they are copied to the host, a chunk at a time — never the whole
-        ``(EB, K)`` buffer the reference's ``_harvest`` converts
+        is staged host->device before step ``i`` runs.  Only a step's valid
+        rows (a prefix of its output buffer) go to the host, never the
+        whole ``(EB, K)`` buffer the reference's ``_harvest`` converts
         (executor.py:367-373: 66 MB a step at the paper's configuration).
+        On a card each step queues one ``non_blocking`` copy of them into
+        the executor's pinned result ring and a helper thread turns each
+        full chunk into the caller's arrays (``streaming.results``); the
+        call returns once every result is on the host.  On the CPU a
+        step's rows are cloned and converted every :attr:`COLLECT_CHUNK`
+        steps.
         """
         self._require_shard()
-        state = self.init_state()
         results: List[Tuple[np.ndarray, np.ndarray]] = []
-        pending = []
         tracer = self.tracer
+        first = tracer.step
+        ring = self._result_ring() if collect else None
+        if ring is not None:
+            delivery = Delivery(ring, results, tracer)
+            try:
+                with delivery:
+                    state = self._drive(event_gen, n_steps, delivery.add)
+            finally:
+                self.result_chunks += delivery.delivered
+                self.result_ring_waits += delivery.waits
+        else:
+            pending = []
 
-        def _harvest():
-            with tracer.span("stream.harvest"):
-                for ends, rows in pending:
-                    results.append((ends.cpu().numpy(), rows.cpu().numpy()))
-                pending.clear()
+            def _harvest():
+                with tracer.span("stream.harvest"):
+                    for ends, rows in pending:
+                        results.append((ends.cpu().numpy(),
+                                        rows.cpu().numpy()))
+                    pending.clear()
 
+            def keep(rows, ends, n):
+                with tracer.span("stream.collect"):
+                    pending.append((ends[:n].clone(), rows[:n].clone()))
+                if len(pending) >= self.COLLECT_CHUNK:
+                    _harvest()
+
+            state = self._drive(event_gen, n_steps,
+                                keep if collect else None)
+            _harvest()
+        tracer.at_step(first + n_steps)
+        return state, results
+
+    def _result_ring(self) -> Optional[ResultRing]:
+        """On a card, the executor's pinned result ring, sized from the
+        spec: :attr:`COLLECT_CHUNK` steps of ``max_windows_per_step`` rows,
+        and at least one step's whole output buffer.  None on the CPU,
+        where the results are host tensors already."""
+        if self.device.type != "cuda":
+            return None
+        spec = self._loc_spec
+        budget = max(spec.emit_buffer_rows,
+                     self.COLLECT_CHUNK * spec.max_windows_per_step)
+        if self._ring is None or self._ring.budget != budget:
+            self._ring = pinned_ring(budget, self.k_loc, self.device)
+        return self._ring
+
+    def _drive(self, event_gen, n_steps: int, keep) -> Dict:
+        """``run_stream``'s loop: the state after ``n_steps`` steps, each
+        step that emits ``n`` > 0 rows handed to ``keep(results,
+        window_ends, n)`` (None keeps nothing).  The tracer is left at the
+        last step's index."""
+        state = self.init_state()
+        tracer = self.tracer
         B = self.cfg.batch_size
         lo = self.rank * self.b_loc
         snap_every = self.cfg.snapshot_every
@@ -627,12 +685,6 @@ class StreamExecutor:
             if snap_every and (i + 1) % snap_every == 0:
                 self._last_backup = self.snapshot(state)
             n = out["rows"]
-            if collect and n:
-                with tracer.span("stream.collect"):
-                    pending.append((out["window_ends"][:n].clone(),
-                                    out["results"][:n].clone()))
-                if len(pending) >= self.COLLECT_CHUNK:
-                    _harvest()
-        _harvest()
-        tracer.at_step(first + n_steps)
-        return state, results
+            if keep is not None and n:
+                keep(out["results"], out["window_ends"], n)
+        return state

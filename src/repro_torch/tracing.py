@@ -43,11 +43,25 @@ The executor's spans:
 ``stream.emit.read``    one blocking read of the card by emission; there
                         are as many as the executor's ``host_syncs`` (one
                         a step on a card)
-``stream.collect``      ``run_stream``'s cut and copy, on the card, of a
-                        step's valid result rows
-``stream.harvest``      ``run_stream``'s copy of the collected rows to the
-                        host (every ``COLLECT_CHUNK`` steps and at the end)
+``stream.collect``      ``run_stream``'s keeping of a step's valid result
+                        rows, one a step that emitted: on a card the
+                        step's two ``non_blocking`` copies queued into the
+                        open chunk of the pinned result ring; on the CPU
+                        the rows cut and cloned
+``stream.harvest``      on a card, the loop's hand-off of a full chunk to
+                        the helper thread (waiting while the helper holds
+                        the chunk it opens next) and, at the end, the last
+                        chunk's hand-off and the helper's join; on the CPU
+                        the copy of the collected rows to host arrays
+                        (every ``COLLECT_CHUNK`` steps and at the end)
 ======================  ==================================================
+
+The helper thread that turns a card's result chunks into the caller's
+arrays (``streaming.results``) records no span: a tracer serves one
+thread.  The executor counts its work instead: ``result_chunks`` (chunks
+delivered) and ``result_ring_waits`` (hand-offs that waited for the
+helper), beside staging's ``stage_slot_fills``, ``stage_slot_waits`` and
+``stage_slot_layouts`` and emission's ``host_syncs`` and ``emit_rounds``.
 """
 
 from __future__ import annotations

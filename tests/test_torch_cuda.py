@@ -170,6 +170,83 @@ def test_executor_on_cuda_matches_cpu(cuda):
     _route_inputs_through_the_kernel(cuda)
 
 
+def _result_batches(seed, steps=80, B=128, K=64):
+    """Batches whose event time jumps by 0 to 30 ms a step, so steps emit
+    0 to 3 windows and nothing is dropped; values small integers, so every
+    sum is exact."""
+    rng = np.random.RandomState(seed)
+    out, t = [], 0
+    for _ in range(steps):
+        t += int(rng.choice([0, 0, 10, 20, 30]))
+        out.append({"ts": (t + np.sort(rng.randint(0, 10, B))).astype(
+                        np.int32),
+                    "key": rng.randint(0, K, B).astype(np.int32),
+                    "value": rng.randint(1, 4, B).astype(np.float32),
+                    "valid": rng.rand(B) > 0.1})
+    return out
+
+
+def _chunk_plan(counts, budget):
+    """Rows a result chunk holds: it closes when the next step's rows
+    would not fit it, and at the end."""
+    chunks, used = [], 0
+    for n in counts:
+        if used + n > budget:
+            chunks.append(used)
+            used = 0
+        used += n
+    return chunks + [used] if used else chunks
+
+
+def test_run_stream_results_through_the_pinned_ring(cuda):
+    """A row budget of 8 (``COLLECT_CHUNK`` set small on the instance, so
+    the spec's 8-row output buffer sets it) gives many chunks, steps that
+    emit 0 rows and a partial last chunk: every result equals the CPU
+    executor's, in no memory of the ring, with one host read a step and
+    the chunks planned; a second stream on the same executor leaves the
+    first's results as they were."""
+    spec = VectorWindowSpec(size_ms=40, slide_ms=10, n_key_buckets=64,
+                            max_windows_per_step=2, ring_margin=4)
+    assert spec.emit_buffer_rows == 8
+    cfg = StreamJobConfig(window=spec, batch_size=128)
+    gpu = StreamExecutor(cfg)
+    gpu.COLLECT_CHUNK = 1
+    kept, chunks = [], 0
+    for seed, steps in ((1, 80), (2, 50)):
+        batches = _result_batches(seed, steps)
+
+        def feed(s, B):
+            return batches[s // B]
+
+        syncs = gpu.host_syncs
+        g_state, g_res = gpu.run_stream(feed, steps)
+        assert gpu.host_syncs - syncs == steps
+        c_state, c_res = StreamExecutor(cfg, device="cpu").run_stream(
+            feed, steps)
+        for k in c_state:
+            assert torch.equal(g_state[k].cpu(), c_state[k]), k
+        counts = [len(e) for e, _ in c_res]
+        assert 0 < len(c_res) < steps              # steps that emit nothing
+        assert len(g_res) == len(c_res)
+        for (ge, gr), (ce, cr) in zip(g_res, c_res):
+            assert (ge.dtype, gr.dtype) == (np.int32, np.float32)
+            np.testing.assert_array_equal(ge, ce)
+            np.testing.assert_array_equal(gr, cr)
+            for chunk in gpu._ring.host:
+                assert not any(np.shares_memory(a, b) for a in (ge, gr)
+                               for b in chunk)
+        plan = _chunk_plan(counts, 8)
+        assert len(plan) > 2 and plan[-1] < 8       # a partial last chunk
+        chunks += len(plan)
+        assert gpu.result_chunks == chunks
+        assert 0 <= gpu.result_ring_waits <= chunks
+        kept.append((g_res, [(e.copy(), r.copy()) for e, r in g_res]))
+    g_res, copies = kept[0]
+    for (ge, gr), (ce, cr) in zip(g_res, copies):
+        np.testing.assert_array_equal(ge, ce)
+        np.testing.assert_array_equal(gr, cr)
+
+
 def _host_batch(B, seed):
     """A batch as callers hand one over: numpy columns, ``key`` in int64
     (staged as int32), ``value`` a CPU tensor, a 0-d ``wm``."""

@@ -11,6 +11,8 @@ exactly; float sums of random values within ``rtol=1e-6, atol=1e-5``
 
 import dataclasses
 import functools
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -25,6 +27,8 @@ from repro.nexmark import (  # noqa: E402
     NexmarkGenerator as JaxGenerator)
 from repro_torch import streaming as tst  # noqa: E402
 from repro_torch.streaming import executor as texec  # noqa: E402
+from repro_torch.streaming.results import (  # noqa: E402
+    Delivery, ResultRing)
 from repro_torch.nexmark import (  # noqa: E402
     DisorderedNexmarkGenerator, NexmarkGenerator)
 from repro_torch.streaming.state import (  # noqa: E402
@@ -583,3 +587,204 @@ def test_window_agg_op_keeps_drop_semantics():
                      torch.tensor([2, 2, 2], dtype=torch.int32),
                      torch.ones(3), torch.ones(3, dtype=torch.bool), 16, 8)
     assert out.sum() == 1 and out[3, 2] == 1
+
+
+# ---------------------------------------------------------------------------
+# Results to the host: the result ring's chunk plan and its helper's
+# delivery, driven with numpy chunks and a marker that waits for nothing
+# ---------------------------------------------------------------------------
+
+
+class _NoWait:
+    def synchronize(self):
+        pass
+
+
+def _numpy_ring(budget, k, mark=_NoWait):
+    chunks = [(np.full((budget, k), np.nan, np.float32),
+               np.full(budget, -7, np.int32)) for _ in range(2)]
+    return ResultRing(chunks, np.copyto, mark)
+
+
+def _step_outputs(counts, k, buffer_rows):
+    """Each step's whole output buffers, their first ``n`` rows distinct."""
+    outs = []
+    for i, n in enumerate(counts):
+        rows = np.zeros((buffer_rows, k), np.float32)
+        rows[:n] = 1000 * i + np.arange(n * k).reshape(n, k)
+        ends = np.zeros(buffer_rows, np.int32)
+        ends[:n] = 10 * (i + 1) + np.arange(n)
+        outs.append((rows, ends, n))
+    return outs
+
+
+def _plan(counts, budget):
+    """The steps each chunk holds: a chunk closes when the next step's rows
+    would not fit it, and at the end."""
+    chunks, open_, used = [], [], 0
+    for i, n in enumerate(counts):
+        if not n:
+            continue
+        if used + n > budget:
+            chunks.append(open_)
+            open_, used = [], 0
+        open_.append(i)
+        used += n
+    return chunks + [open_] if open_ else chunks
+
+
+_RNG_COUNTS = np.random.RandomState(3).randint(0, 5, 300).tolist()
+
+
+@pytest.mark.parametrize("counts,budget,plan", [
+    ([3, 4, 2, 5, 1], 8, [[0, 1], [2, 3, 4]]),
+    ([4, 4, 4, 4, 4], 8, [[0, 1], [2, 3], [4]]),
+    ([0, 3, 0, 0, 5, 0, 2, 0], 8, [[1, 4], [6]]),
+    ([8, 8, 1], 8, [[0], [1], [2]]),
+    ([0, 0, 0], 8, []),
+    (_RNG_COUNTS, 7, None),
+], ids=["closes_when_next_does_not_fit", "exact_fill", "zero_row_steps",
+        "a_step_fills_a_chunk", "nothing_emitted", "many_chunks"])
+def test_result_ring_delivers_every_step_in_order(counts, budget, plan):
+    """Under a short switch interval, so the loop and the helper interleave
+    often: the chunk plan, every ``(ends, rows)`` in step order and equal
+    to its input, none sharing memory with the ring, and the results kept
+    whole after the ring is overwritten."""
+    k = 5
+    plan = _plan(counts, budget) if plan is None else plan
+    outs = _step_outputs(counts, k, buffer_rows=budget)
+    ring = _numpy_ring(budget, k)
+    results = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with Delivery(ring, results) as delivery:
+            for rows, ends, n in outs:
+                if n:
+                    delivery.add(rows, ends, n)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not delivery._helper.is_alive()
+    emitted = [i for i, n in enumerate(counts) if n]
+    assert len(results) == len(emitted)
+    assert delivery.delivered == len(plan)
+    assert 0 <= delivery.waits <= max(0, len(plan) - 2)
+    for (ends, rows), i in zip(results, emitted):
+        want_rows, want_ends, n = outs[i]
+        np.testing.assert_array_equal(rows, want_rows[:n])
+        np.testing.assert_array_equal(ends, want_ends[:n])
+        for chunk in ring.host:
+            assert not any(np.shares_memory(a, b) for a in (ends, rows)
+                           for b in chunk)
+    # the steps of one chunk are views of one array; no two chunks share one
+    chunk_of = {i: c for c, steps in enumerate(plan) for i in steps}
+    for (_, a), (_, b), i, j in zip(results, results[1:], emitted,
+                                    emitted[1:]):
+        assert (a.base is b.base) == (chunk_of[i] == chunk_of[j])
+    for rows, ends in ring.host:
+        rows.fill(-1)
+        ends.fill(-1)
+    for (ends, rows), i in zip(results, emitted):
+        np.testing.assert_array_equal(rows, outs[i][0][:outs[i][2]])
+
+
+class _Failing:
+    def synchronize(self):
+        raise RuntimeError("marker failed")
+
+
+@pytest.mark.parametrize("counts", [[4] * 12, [3]],
+                         ids=["mid_stream", "last_chunk"])
+def test_result_ring_raises_what_its_helper_raised(counts):
+    ring = _numpy_ring(4, 3, mark=_Failing)
+    results = []
+    delivery = Delivery(ring, results)
+    with pytest.raises(RuntimeError, match="marker failed"):
+        with delivery:
+            for rows, ends, n in _step_outputs(counts, 3, 4):
+                delivery.add(rows, ends, n)
+    assert not delivery._helper.is_alive()
+    assert results == [] and delivery.delivered == 0
+
+
+def test_result_ring_joins_its_helper_when_the_loop_raises():
+    ring = _numpy_ring(4, 3)
+    results = []
+    delivery = Delivery(ring, results)
+    with pytest.raises(KeyError):
+        with delivery:
+            for rows, ends, n in _step_outputs([4, 4, 4], 3, 4):
+                delivery.add(rows, ends, n)
+            raise KeyError("loop")
+    assert not delivery._helper.is_alive()
+
+
+def test_result_ring_loop_waits_for_a_chunk_the_helper_holds():
+    """The helper held in its first chunk's marker: the loop's second
+    hand-off waits for it, once, and then every result arrives."""
+    release = threading.Event()
+
+    class Held:
+        first = True
+
+        def __init__(self):
+            self.hold, Held.first = Held.first, False
+
+        def synchronize(self):
+            if self.hold:
+                assert release.wait(timeout=30)
+
+    ring = _numpy_ring(4, 3, mark=Held)
+    results = []
+    timer = threading.Timer(0.2, release.set)
+    timer.start()
+    try:
+        with Delivery(ring, results) as delivery:
+            for rows, ends, n in _step_outputs([4, 4, 4], 3, 4):
+                delivery.add(rows, ends, n)
+    finally:
+        timer.cancel()
+    assert (delivery.waits, delivery.delivered, len(results)) == (1, 3, 3)
+
+
+def test_run_stream_through_a_result_ring_equals_the_host_path():
+    """``run_stream``'s card path with a numpy ring in place of the pinned
+    one, on the CPU: the same results as the host path, one collect span a
+    step that emitted, and the counters."""
+    from repro_torch import tracing
+    spec = tst.VectorWindowSpec(size_ms=40, slide_ms=10, n_key_buckets=16,
+                                max_windows_per_step=2, ring_margin=2)
+    cfg = tst.StreamJobConfig(window=spec, batch_size=32)
+    rng = np.random.RandomState(5)
+    batches = [{"ts": (i * 13 + np.sort(rng.randint(0, 13, 32))).astype(
+                    np.int32),
+                "key": rng.randint(0, 16, 32).astype(np.int32),
+                "value": np.ones(32, np.float32),
+                "valid": rng.rand(32) > 0.2} for i in range(40)]
+
+    def gen(start, size):
+        return batches[start // size]
+
+    want_state, want = tst.StreamExecutor(cfg, device="cpu").run_stream(
+        gen, 40)
+    tracer = tracing.Tracer()
+    ex = tst.StreamExecutor(cfg, device="cpu", tracer=tracer)
+    budget = spec.emit_buffer_rows
+    chunks = [(torch.zeros((budget, 16)),
+               torch.zeros(budget, dtype=torch.int32)) for _ in range(2)]
+    ex._result_ring = lambda: ResultRing(
+        chunks, lambda dst, src: dst.copy_(src), _NoWait)
+    state, got = ex.run_stream(gen, 40)
+    assert len(got) == len(want) > 10
+    for (ge, gr), (we, wr) in zip(got, want):
+        np.testing.assert_array_equal(ge, we)
+        np.testing.assert_array_equal(gr, wr)
+    for k in want_state:
+        assert torch.equal(state[k], want_state[k]), k
+    calls = {k: v[0] for k, v in tracer.mark().items()}
+    assert calls["stream.collect"] == len(got)
+    plan = _plan([len(e) for e, _ in got], budget)
+    assert ex.result_chunks == len(plan) > 2
+    assert calls["stream.harvest"] == len(plan)
+    assert 0 <= ex.result_ring_waits <= len(plan) - 2
+    assert tracer.step == 40
